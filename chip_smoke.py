@@ -1,0 +1,481 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing JSON lines; any failure raises and exits non-zero
+before the final line:
+
+1. device: the card's name and power limit (nvidia-smi), the torch and
+   CUDA versions, and the time to build the wire kernels from
+   ``src/repro_torch/kernels/csrc`` (nvcc, at first use, into ``build/``).
+2. kernels: each CUDA kernel against its plain PyTorch version on the
+   card, bit for bit, on every parameter-leaf shape of the full-width
+   char-LM (delta-like values) and on edge cases; then its time per
+   client delta (the 16 leaf launches of one ``finalize_delta``) from
+   CUDA events, beside its plain version's, a one-call library
+   equivalent where one exists, and the least time the card could take.
+3. rounds: the full-width ``charlm-shakespeare`` model through five
+   CAFL-L client rounds on the card (policy -> ``train_client`` x 6 ->
+   ``aggregate`` -> ``apply_delta`` -> usage -> ``dual_update`` ->
+   eval), with the launch counters zeroed just before and read just
+   after: three rounds from zero duals (q = 0, then q = 2), one at
+   lambda_C = 0.5 (q = 1), one with ``wire_topk = 64``. Then one
+   client's first microbatch on the card and on the CPU from the same
+   parameters and batch.
+4. the ``{"kernels": [...]}`` summary, the nvidia-smi line, and the
+   final ``{"ok": true, ...}`` line.
+
+Where the time goes under torch.profiler is ``scripts/profile_port.py``'s
+work, not this script's.
+
+Needs one card and the CUDA toolkit (nvcc); imports neither JAX nor the
+JAX package.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+BLOCK = 256
+SOURCE = "src/repro_torch/kernels/csrc/wire_kernels.cu"
+#: per-card data-sheet rates (NVIDIA, dense, no sparsity): device-memory
+#: bytes/s and fp32 (non-tensor-core) operations/s
+CARD_RATES = {
+    "H100 PCIe": (2.0e12, 51e12),
+    "H100 NVL": (3.9e12, 60e12),
+    "H100": (3.35e12, 67e12),        # SXM
+}
+#: |loss(card) - loss(cpu)| / |loss(cpu)| allowed for one microbatch:
+#: fp32 on both, sums taken in another order (no TF32 on the card)
+CPU_CARD_RTOL = 1e-4
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def card_rates(name: str):
+    """Data-sheet rates of the card ``name``; raises for a card without
+    an entry, so no bound is computed from another card's peaks."""
+    for key, rates in CARD_RATES.items():
+        if all(part in name for part in key.split()):
+            return key, rates
+    raise SmokeFailure(f"no data-sheet rates for {name!r}: add it to "
+                       f"CARD_RATES")
+
+
+def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median wall time of ``fn`` on the card, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def delta_like(gen: torch.Generator, shape) -> torch.Tensor:
+    """Update-like values: normal x 1e-3, ~5% exact zeros, and a run of
+    tied magnitudes of both signs at the front."""
+    x = torch.randn(shape, generator=gen) * 1e-3
+    x[torch.rand(shape, generator=gen) < 0.05] = 0.0
+    flat = x.view(-1)
+    if flat.numel() > 64:
+        flat[:32] = flat[40]
+        flat[32:40] = -flat[40]
+    return x
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def max_gap(*pairs) -> float:
+    """Largest |a - b| over the (kernel, plain) output pairs, as float64;
+    inf where a pair's shapes differ."""
+    worst = 0.0
+    for a, b in pairs:
+        if a.shape != b.shape:
+            return math.inf
+        if a.numel():
+            worst = max(worst, float((a.double() - b.double()).abs().max()))
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels
+# ---------------------------------------------------------------------------
+
+
+def leaf_blocks(leaves):
+    """Each leaf flattened and zero-padded to whole 256-value blocks, as
+    ``kernels.ops`` hands it to the kernels."""
+    from repro_torch.kernels.ops import _blocks
+    return [_blocks(x, BLOCK)[0] for x in leaves]
+
+
+def check_kernels(leaves, dev) -> dict:
+    """Hold each kernel against its plain version on the card, on the
+    same inputs; returns each kernel's largest |kernel - plain| over all
+    its outputs and cases (codes, scales and mask included). Any bit of
+    difference fails the run."""
+    from repro_torch.kernels import ops, quantize, ref, wire
+    gen = torch.Generator().manual_seed(7)
+    edge = [torch.zeros(()), torch.zeros((0,)), torch.zeros((512,)),
+            delta_like(gen, (1,)), delta_like(gen, (1000,)),
+            delta_like(gen, (3, 129))]
+    edge[4][256:512] = 0.0                             # an all-zero row
+    cases = [x.to(dev) for x in edge] + list(leaves)
+    worst = dict.fromkeys(("quantize_blocks", "dequantize_blocks",
+                           "quantize_topk_blocks"), 0.0)
+    for x in cases:
+        blocks = leaf_blocks([x])[0]
+        for bits in (8, 2):
+            c, s = quantize.quantize_blocks(blocks, bits)
+            rc, rs = ref.quantize_blocks_ref(blocks, bits)
+            d = quantize.dequantize_blocks(rc, rs)
+            rd = ref.dequantize_blocks_ref(rc, rs)
+            torch.cuda.synchronize()
+            worst["quantize_blocks"] = max(worst["quantize_blocks"],
+                                           max_gap((c, rc), (s, rs)))
+            worst["dequantize_blocks"] = max(worst["dequantize_blocks"],
+                                             max_gap((d, rd)))
+            check(bits_equal(c, rc) and bits_equal(s, rs),
+                  f"quantize_blocks differs at {tuple(x.shape)} bits={bits}")
+            check(bits_equal(d, rd),
+                  f"dequantize_blocks differs at {tuple(x.shape)}")
+            for k in (32, 64):
+                got = wire.quantize_topk_blocks(blocks, bits, k)
+                want = ref.quantize_topk_blocks_ref(blocks, bits, k)
+                torch.cuda.synchronize()
+                worst["quantize_topk_blocks"] = max(
+                    worst["quantize_topk_blocks"], max_gap(*zip(got, want)))
+                check(all(bits_equal(g, w) for g, w in zip(got, want)),
+                      f"quantize_topk_blocks differs at {tuple(x.shape)} "
+                      f"bits={bits} k={k}")
+                if blocks.shape[0]:
+                    check(bool((got[2].sum(dim=1) == k).all()),
+                          "top-k did not keep exactly k per block")
+            y = ops.quantize_dequantize(x, bits=bits, topk=64)
+            check(bits_equal(y, ref.quantize_dequantize_ref(x, bits, topk=64)),
+                  f"ops.quantize_dequantize differs at {tuple(x.shape)}")
+    return worst
+
+
+def kernel_records(leaves, card_name: str):
+    """Time each kernel per client delta (the 16 leaf launches) beside its
+    plain version, the library call where one exists, and its bound."""
+    from repro_torch.kernels import quantize, ref, wire
+    _, (bw, fp32_rate) = card_rates(card_name)
+    blocks = leaf_blocks(leaves)
+    n = sum(b.numel() for b in blocks)                # padded values
+    nb = sum(b.shape[0] for b in blocks)              # blocks
+    bits, k = 2, 64
+    coded = [quantize.quantize_blocks(b, bits) for b in blocks]
+
+    def bound(bytes_, ops):
+        t_bytes, t_ops = bytes_ / bw * 1e3, ops / fp32_rate * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    recs = []
+    # quantize: read x, write codes + scales; ~6 fp32 ops per value
+    # (abs, max, divide, rint, two clamps)
+    b_ms, b_by = bound(n * 4 + n + nb * 4, 6 * n)
+    recs.append({
+        "name": "quantize_blocks",
+        "replaces": "src/repro/kernels/quantize.py:47",
+        "ms": time_ms(lambda: [quantize.quantize_blocks(b, bits)
+                               for b in blocks]),
+        "plain_ms": time_ms(lambda: [ref.quantize_blocks_ref(b, bits)
+                                     for b in blocks]),
+        "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by})
+    # dequantize: read codes + scales, write f32; one multiply per value
+    b_ms, b_by = bound(n + nb * 4 + n * 4, n)
+    recs.append({
+        "name": "dequantize_blocks",
+        "replaces": "src/repro/kernels/quantize.py:65",
+        "ms": time_ms(lambda: [quantize.dequantize_blocks(c, s)
+                               for c, s in coded]),
+        "plain_ms": time_ms(lambda: [ref.dequantize_blocks_ref(c, s)
+                                     for c, s in coded]),
+        "library_ms": time_ms(lambda: [torch.mul(c, s[:, None])
+                                       for c, s in coded]),
+        "bound_ms": b_ms, "bound_by": b_by})
+    # top-k: read x, write codes + mask + scales. The function needs the
+    # quantizer's ~6 ops per value plus a few to select k of a block (a
+    # compare with the k-th magnitude and a tie count: 2), not the
+    # block-sized rank loop this kernel's design spends
+    b_ms, b_by = bound(n * 4 + 2 * n + nb * 4, 8 * n)
+    recs.append({
+        "name": "quantize_topk_blocks",
+        "replaces": "src/repro/kernels/wire.py:84",
+        "ms": time_ms(lambda: [wire.quantize_topk_blocks(b, bits, k)
+                               for b in blocks]),
+        "plain_ms": time_ms(lambda: [ref.quantize_topk_blocks_ref(b, bits, k)
+                                     for b in blocks], reps=5, warmup=1),
+        "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by})
+    for r in recs:
+        r.update(route="cuda", source=SOURCE)
+    return recs, {"values": n, "blocks": nb, "leaves": len(blocks),
+                  "bits": bits, "k": k, "bytes_per_s": bw,
+                  "fp32_ops_per_s": fp32_rate}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the CAFL-L client rounds
+# ---------------------------------------------------------------------------
+
+
+def n_active_closed_form(cfg, params, k: int) -> int:
+    """Exact trainable-parameter count at freezing depth ``k``: the top
+    ``k`` units, the final norm, and the embeddings only when nothing is
+    frozen."""
+    n = 0
+    k = max(1, min(k, cfg.num_layers))
+    for name, t in params.items():
+        path = name.split(".")
+        if path[:2] == ["stack", "units"]:
+            n += t.numel() // t.shape[0] * k
+        elif path[1] in ("embed", "pos_embed"):
+            n += t.numel() if k >= cfg.num_layers else 0
+        else:
+            n += t.numel()
+    return n
+
+
+def wire_mb_closed_form(n_active: int, q: int, topk) -> float:
+    """Bytes per trainable parameter: 4 at q=0; 1 + 1/64 (int8 + the fp32
+    scale of a 256-block) at q=1; 1/4 + 1/64 at q=2; with top-k, the kept
+    codes, a 1-bit mask and the scale: (topk*bits + 288) / 2048."""
+    if q == 0:
+        per_param = 4.0
+    elif topk is None or topk >= BLOCK:
+        per_param = (1.0 if q == 1 else 0.25) + 1 / 64
+    else:
+        per_param = (topk * (8 if q == 1 else 2) + 288) / 2048
+    return n_active * per_param / 1e6
+
+
+def drive_rounds(dev, cfg, fl, ds):
+    """Five CAFL-L client rounds on ``dev``; returns the initial params,
+    the per-round records and the summed launch counts."""
+    from repro_torch.core import (RESOURCES, DualState, aggregation,
+                                  calibrate, dual_update, make_eval_fn,
+                                  policy)
+    from repro_torch.core.client import ClientRunner
+    from repro_torch.core.freezing import count_params
+    from repro_torch.data import FederatedData
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(fl.seed), dev).params()
+    init_params = {k: v.clone() for k, v in params.items()}
+    data = FederatedData(ds.train, fl.num_clients, seed=fl.seed,
+                         noniid_alpha=fl.noniid_alpha)
+    resources = calibrate(count_params(params), fl)
+    evaluate = make_eval_fn(model, ds, fl, device=dev)
+    rng = np.random.default_rng(fl.seed)
+    duals = DualState()
+    schedule = [("cafl", None), ("cafl", None), ("cafl", None),
+                ("lambda_c=0.5", None), ("wire_topk=64", 64)]
+    records = []
+    ops.reset_launches()
+    for t, (mode, topk) in enumerate(schedule, start=1):
+        if mode == "lambda_c=0.5":
+            duals = DualState(lam={r: (0.5 if r == "comm" else 0.0)
+                                   for r in RESOURCES})
+        run_fl = fl.replace(wire_topk=topk)
+        runner = ClientRunner(model, run_fl, data, resources, device=dev)
+        t0 = time.perf_counter()
+        val_loss = evaluate(params)
+        kn = policy(duals, run_fl)
+        clients = rng.choice(fl.num_clients, size=fl.clients_per_round,
+                             replace=False)
+        before = dict(ops.LAUNCHES)
+        results = [runner.train_client(int(c), params, kn) for c in clients]
+        torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        params = aggregation.apply_delta(
+            params, aggregation.aggregate([r.delta for r in results]))
+        usages = [resources.usage(r.params_active, kn) for r in results]
+        mean = {r: sum(u[r] for u in usages) / len(usages)
+                for r in RESOURCES}
+        duals = dual_update(duals, mean, fl.budgets, fl.duals)
+        seconds = time.perf_counter() - t0
+
+        n_active = n_active_closed_form(cfg, params, kn.k)
+        want_mb = wire_mb_closed_form(n_active, kn.q, topk)
+        rec = {"phase": "round", "round": t, "mode": mode,
+               "clients": [int(c) for c in clients], "knobs": kn.as_dict(),
+               "val_loss": val_loss,
+               "train_loss": float(np.mean([r.train_loss for r in results])),
+               "wire_mb_actual": results[0].wire_mb_actual,
+               "wire_mb_closed_form": want_mb,
+               "params_active": results[0].params_active,
+               "launches": launched, "duals_after": dict(duals.lam),
+               "seconds": seconds}
+        emit(rec)
+        records.append(rec)
+
+        check(math.isfinite(val_loss) and all(
+            math.isfinite(r.train_loss) for r in results),
+            f"round {t}: non-finite loss")
+        for r in results:
+            check(r.wire_mb_actual == want_mb,
+                  f"round {t}: wire_mb_actual {r.wire_mb_actual} != closed "
+                  f"form {want_mb}")
+            check(abs(r.params_active - n_active) <= 1e-6 * n_active,
+                  f"round {t}: params_active {r.params_active} != {n_active}")
+        per_client = 16 * len(results)
+        if kn.q == 0:
+            check(not any(launched.values()),
+                  f"round {t}: wire kernels launched at q=0: {launched}")
+        else:
+            quant = ("quantize_topk_blocks" if topk is not None
+                     else "quantize_blocks")
+            check(launched[quant] == per_client
+                  and launched["dequantize_blocks"] == per_client,
+                  f"round {t}: expected {per_client} launches of {quant} "
+                  f"and dequantize_blocks, got {launched}")
+    check(records[0]["knobs"]["q"] == 0, "round 1 must run at q=0")
+    check(records[1]["knobs"]["q"] == 2 and records[2]["knobs"]["q"] == 2,
+          "rounds 2-3 must run at q=2")
+    check(records[3]["knobs"]["q"] == 1, "round 4 must run at q=1")
+    check(records[4]["knobs"]["q"] >= 1, "round 5 must run at q>=1")
+    return init_params, records, dict(ops.LAUNCHES)
+
+
+def cpu_card_microbatch(cfg, fl, ds, params):
+    """One client's first microbatch through the train loss on the card
+    and on the CPU, from the same parameters and batch."""
+    from repro_torch.data import FederatedData
+    from repro_torch.models import build
+
+    model = build(cfg)
+    data = FederatedData(ds.train, fl.num_clients, seed=fl.seed)
+    batch = data.batch(0, fl.b_base, fl.seq_len)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        with torch.no_grad():
+            losses[dev] = float(model.train_loss(p, b)[0])
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    emit({"phase": "cpu_vs_card", "loss_cuda": losses["cuda"],
+          "loss_cpu": losses["cpu"], "rel_diff": rel, "rtol": CPU_CARD_RTOL})
+    check(rel <= CPU_CARD_RTOL, f"card and CPU losses differ by {rel}")
+
+
+def full_width(dev):
+    """The full-width char-LM's config (vocab widened to the corpus), FL
+    config, corpus, model, and one delta-like tensor per parameter leaf
+    on ``dev``."""
+    from repro_torch.configs.charlm_shakespeare import CONFIG, FL
+    from repro_torch.data import load_corpus
+    from repro_torch.models import build
+
+    ds = load_corpus()
+    cfg = CONFIG
+    if cfg.vocab_size < ds.vocab_size:
+        cfg = cfg.replace(vocab_size=ds.vocab_size)
+    model = build(cfg)
+    probe = model.init(torch.Generator().manual_seed(1), dev).params()
+    gen = torch.Generator().manual_seed(2)
+    leaves = [delta_like(gen, tuple(t.shape)).to(dev) for t in probe.values()]
+    return cfg, FL, ds, model, leaves
+
+
+def main() -> int:
+    # the port is imported before anything is printed: without it (a
+    # directory holding only this script) the run fails with no result
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import cuda_lib
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev = resolve_device("cuda")
+    smi = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    cuda_lib.load_library()
+    emit({"phase": "device", "nvidia_smi": smi, "name": name,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "kernel_build_s": time.perf_counter() - t0,
+          "library": os.path.relpath(cuda_lib.library_path(), ROOT)})
+
+    cfg, fl, ds, model, leaves = full_width(dev)
+    emit({"phase": "model", "config": cfg.name, "params":
+          model.param_count()["total"], "leaves": len(leaves)})
+
+    worst = check_kernels(leaves, dev)
+    recs, sizes = kernel_records(leaves, name)
+    for r in recs:
+        emit({"phase": "kernel", **r, **sizes})
+
+    t0 = time.perf_counter()
+    init_params, rounds, launches = drive_rounds(dev, cfg, fl, ds)
+    rounds_s = time.perf_counter() - t0
+    for r in recs:
+        check(launches[r["name"]] > 0,
+              f"{r['name']} was not launched on the main path")
+        r["launches"] = launches[r["name"]]
+        r["max_abs_err"] = worst[r["name"]]
+    emit({"phase": "rounds", "rounds": len(rounds), "seconds": rounds_s,
+          "launches": launches})
+    cpu_card_microbatch(cfg, fl, ds, init_params)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{k: r[k] for k in keys} for r in recs]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

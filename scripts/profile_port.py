@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's time goes on one CUDA card, under torch.profiler.
+
+    python3 scripts/profile_port.py [--k 4 --b 31 --q 2 --grad-accum 2]
+
+Prints JSON lines:
+
+- ``device``: the card's name and power limit (nvidia-smi).
+- ``kernel_device``: the device time of each wire kernel per client delta
+  of the full-width char-LM (the 16 leaf launches of one
+  ``finalize_delta``, bits 2, k 64), averaged over 20 deltas.
+- ``profile``: one client's LocalTrain at the given knobs (5 local
+  steps): wall time per microbatch without the profiler, per step part
+  (grad, masked AdamW, the wire round trip) with a synchronize around
+  each, and the device's busy share and top kernels under the profiler.
+
+The default knobs are those ``chip_smoke.py``'s second round runs at
+(q = 2 from the comm dual). ``chip_smoke.py`` checks the port; this
+script only measures it. Needs one card and the CUDA toolkit; imports
+neither JAX nor the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+from chip_smoke import (check, emit, full_width, leaf_blocks,  # noqa: E402
+                        nvidia_smi_line)
+
+
+def device_kernels(fn, reps: int = 1):
+    """Run ``fn`` ``reps`` times under torch.profiler -> (wall seconds,
+    {kernel name: (launches, device us)}) for the CUDA kernels it ran,
+    averaged per repetition."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            out[e.key] = (e.count / reps, e.self_device_time_total / reps)
+    return wall / reps, out
+
+
+def kernel_device_us(fn, name: str, reps: int = 20) -> float:
+    """Device time of one of the wire kernels per call of ``fn``."""
+    _, kernels = device_kernels(fn, reps)
+    us = [t for key, (_, t) in kernels.items()
+          if f"{name}_kernel" in key
+          and not (name == "quantize_blocks" and "dequantize" in key)]
+    check(len(us) == 1, f"profiler saw no single {name} kernel: "
+          f"{sorted(kernels)}")
+    return us[0]
+
+
+def wire_kernel_device_us(leaves, bits: int = 2, k: int = 64) -> dict:
+    from repro_torch.kernels import quantize, wire
+    blocks = leaf_blocks(leaves)
+    coded = [quantize.quantize_blocks(b, bits) for b in blocks]
+    return {
+        "quantize_blocks": kernel_device_us(
+            lambda: [quantize.quantize_blocks(b, bits) for b in blocks],
+            "quantize_blocks"),
+        "dequantize_blocks": kernel_device_us(
+            lambda: [quantize.dequantize_blocks(c, s) for c, s in coded],
+            "dequantize_blocks"),
+        "quantize_topk_blocks": kernel_device_us(
+            lambda: [wire.quantize_topk_blocks(b, bits, k) for b in blocks],
+            "quantize_topk_blocks"),
+    }
+
+
+def profile_client(model, fl, ds, params, kn) -> dict:
+    from repro_torch.core import calibrate
+    from repro_torch.core.client import (ClientRunner, apply_masked_update,
+                                         finalize_delta)
+    from repro_torch.core.freezing import count_params
+    from repro_torch.data import FederatedData
+
+    data = FederatedData(ds.train, fl.num_clients, seed=fl.seed)
+    runner = ClientRunner(model, fl, data,
+                          calibrate(count_params(params), fl), device="cuda")
+    micro = kn.s * kn.grad_accum
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    runner.train_client(1, params, kn)                       # warm up
+    wall, _ = sync_time(lambda: runner.train_client(1, params, kn))
+    mask, _ = runner.mask_for(params, kn.k)
+    batch = runner.sample_batch(1, kn.b)
+    t_grad, (_, grads) = sync_time(lambda: runner.loss_and_grads(params,
+                                                                 batch))
+    state = runner.opt.init(params)
+    t_adam, _ = sync_time(lambda: apply_masked_update(runner.opt, params,
+                                                      state, grads, mask))
+    t_wire, _ = sync_time(lambda: finalize_delta(params, params, mask, kn.q))
+    prof_wall, kernels = device_kernels(
+        lambda: runner.train_client(1, params, kn))
+    busy_us = sum(t for _, t in kernels.values())
+    check(busy_us > 0, "the profiler saw no device time")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"phase": "profile", "knobs": kn.as_dict(), "microbatches": micro,
+            "client_s": wall, "per_microbatch_ms": wall / micro * 1e3,
+            "grad_ms": t_grad * 1e3, "adamw_ms": t_adam * 1e3,
+            "finalize_delta_ms": t_wire * 1e3,
+            "profiled_client_s": prof_wall, "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / prof_wall,
+            "kernel_launches": sum(n for n, _ in kernels.values()),
+            "top_kernels": [{"name": name[:80], "launches": n, "us": t}
+                            for name, (n, t) in top]}
+
+
+def main(argv=None) -> int:
+    from repro_torch.core import Knobs
+    from repro_torch.device import resolve_device
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k", type=int, default=4)
+    ap.add_argument("--b", type=int, default=31)
+    ap.add_argument("--q", type=int, default=2)
+    ap.add_argument("--grad-accum", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_port: no CUDA device", file=sys.stderr)
+        return 2
+    dev = resolve_device("cuda")
+    emit({"phase": "device", "nvidia_smi": nvidia_smi_line(),
+          "name": torch.cuda.get_device_name(0)})
+    cfg, fl, ds, model, leaves = full_width(dev)
+    emit({"phase": "kernel_device", "bits": 2, "k": 64,
+          "device_us": wire_kernel_device_us(leaves)})
+    params = model.init(torch.Generator().manual_seed(fl.seed), dev).params()
+    kn = Knobs(k=args.k, s=args.steps, b=args.b, q=args.q,
+               grad_accum=args.grad_accum)
+    emit(profile_client(model, fl, ds, params, kn))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

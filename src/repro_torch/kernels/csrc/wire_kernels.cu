@@ -1,0 +1,166 @@
+// Wire kernels of the CAFL-L client round for Hopper (sm_90a).
+//
+// Three kernels, each behind a plain C entry point that launches it on the
+// caller's stream and returns cudaGetLastError(); the Python wrappers in
+// repro_torch/kernels/{quantize,wire}.py load this file's shared library
+// with ctypes, allocate every output, and raise on a non-zero return.
+//
+// Bit-for-bit contract with repro_torch/kernels/ref.py (and so with
+// repro/kernels/ref.py): the scale is absmax * inv with inv = f32(1/(L-1))
+// passed from the host (a multiply, never a division); x / safe is the
+// correctly rounded fp32 division (div.rn.f32: build WITHOUT
+// --use_fast_math and never use __fdividef); rintf rounds half to even.
+//
+// What bounds them: all three functions are bound by bytes, with a
+// handful of operations per value (selecting k of a row needs no more).
+// The designs keep each pass to one read of the input: one CTA per row,
+// one thread per value, neighbouring threads on neighbouring addresses so
+// loads and stores coalesce, the row's scale loaded or reduced once per
+// row (warp shuffles and shared memory, never a second pass over device
+// memory) and no per-value index arithmetic beyond row * block + i. The
+// top-k rank of this design reads the row from shared memory, never from
+// device memory again, but it costs `block` compares per value, so this
+// kernel sits far above the function's byte bound (a radix select would
+// cut that).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kMaxBlock = 1024;   // one thread per value of a row
+constexpr int kWarp = 32;
+
+// Max of |x| over the CTA's row. Every thread of the CTA must call it;
+// threads past the row's end pass 0. Returns the same value to all.
+__device__ __forceinline__ float row_absmax(float a, float* warp_max) {
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+  }
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (lane == 0) warp_max[warp] = a;
+  __syncthreads();
+  const int n_warps = blockDim.x / kWarp;
+  float m = 0.0f;
+  for (int w = 0; w < n_warps; ++w) m = fmaxf(m, warp_max[w]);
+  return m;
+}
+
+// clip(rint(x / safe), -qmax, qmax) as int8; safe = scale, or 1 when the
+// row is all zeros (scale == 0).
+__device__ __forceinline__ int8_t quantize_value(float x, float scale,
+                                                 float qmax) {
+  const float safe = scale > 0.0f ? scale : 1.0f;
+  const float q = fminf(fmaxf(rintf(x / safe), -qmax), qmax);
+  return static_cast<int8_t>(static_cast<int>(q));
+}
+
+// Replaces repro/kernels/quantize.py::quantize_blocks (_quantize_kernel).
+// grid = n_blocks CTAs, blockDim = block rounded up to a warp.
+__global__ void quantize_blocks_kernel(const float* __restrict__ x,
+                                       int8_t* __restrict__ codes,
+                                       float* __restrict__ scales, int block,
+                                       float qmax, float inv) {
+  __shared__ float warp_max[kMaxBlock / kWarp];
+  const int64_t row = blockIdx.x;
+  const int i = threadIdx.x;
+  const bool live = i < block;
+  const float v = live ? x[row * block + i] : 0.0f;
+  const float absmax = row_absmax(fabsf(v), warp_max);
+  const float scale = absmax * inv;
+  if (live) codes[row * block + i] = quantize_value(v, scale, qmax);
+  if (i == 0) scales[row] = scale;
+}
+
+// Replaces repro/kernels/quantize.py::dequantize_blocks (_dequantize_kernel).
+// Same CTA shape as quantize_blocks_kernel: code * scale[row], with the
+// row's scale read once per CTA (code 0 -> exactly 0.0).
+__global__ void dequantize_blocks_kernel(const int8_t* __restrict__ codes,
+                                         const float* __restrict__ scales,
+                                         float* __restrict__ out, int block) {
+  const int64_t row = blockIdx.x;
+  const int i = threadIdx.x;
+  const float scale = scales[row];
+  if (i < block) {
+    out[row * block + i] = static_cast<float>(codes[row * block + i]) * scale;
+  }
+}
+
+// Replaces repro/kernels/wire.py::quantize_topk_blocks (_quantize_topk_kernel).
+// Same CTA shape as quantize_blocks_kernel; |x| of the row goes to shared
+// memory and each thread counts its own rank over the row:
+//   rank_i = #{j: a_j > a_i} + #{j < i: a_j == a_i},  keep = rank < k.
+// Every thread reads the same a_j in the same step (a shared-memory
+// broadcast, no bank conflicts).
+__global__ void quantize_topk_blocks_kernel(const float* __restrict__ x,
+                                            int8_t* __restrict__ codes,
+                                            float* __restrict__ scales,
+                                            int8_t* __restrict__ mask,
+                                            int block, float qmax, float inv,
+                                            int k) {
+  __shared__ float warp_max[kMaxBlock / kWarp];
+  __shared__ float absx[kMaxBlock];
+  const int64_t row = blockIdx.x;
+  const int i = threadIdx.x;
+  const bool live = i < block;
+  const float v = live ? x[row * block + i] : 0.0f;
+  const float a = fabsf(v);
+  if (live) absx[i] = a;
+  // row_absmax's __syncthreads also publishes absx
+  const float absmax = row_absmax(a, warp_max);
+  const float scale = absmax * inv;
+  if (live) {
+    int rank = 0;
+    for (int j = 0; j < block; ++j) {
+      const float aj = absx[j];
+      rank += (aj > a) || (aj == a && j < i);
+    }
+    const bool keep = rank < k;
+    codes[row * block + i] = keep ? quantize_value(v, scale, qmax) : 0;
+    mask[row * block + i] = keep ? 1 : 0;
+  }
+  if (i == 0) scales[row] = scale;
+}
+
+inline int threads_for(int block) {
+  return (block + kWarp - 1) / kWarp * kWarp;
+}
+
+}  // namespace
+
+extern "C" {
+
+int quantize_blocks_launch(const void* x, void* codes, void* scales,
+                           int n_blocks, int block, int bits, float inv,
+                           void* stream) {
+  const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
+  quantize_blocks_kernel<<<n_blocks, threads_for(block), 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<int8_t*>(codes),
+      static_cast<float*>(scales), block, qmax, inv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dequantize_blocks_launch(const void* codes, const void* scales, void* out,
+                             int n_blocks, int block, void* stream) {
+  dequantize_blocks_kernel<<<n_blocks, threads_for(block), 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(codes), static_cast<const float*>(scales),
+      static_cast<float*>(out), block);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int quantize_topk_blocks_launch(const void* x, void* codes, void* scales,
+                                void* mask, int n_blocks, int block, int bits,
+                                float inv, int k, void* stream) {
+  const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
+  quantize_topk_blocks_kernel<<<n_blocks, threads_for(block), 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<int8_t*>(codes),
+      static_cast<float*>(scales), static_cast<int8_t*>(mask), block, qmax,
+      inv, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,137 @@
+"""Builds and loads the hand-written CUDA kernels (``csrc/*.cu``).
+
+The source is compiled with ``nvcc`` into a shared library with a plain C
+interface and loaded with ``ctypes``, at first use, into
+``build/repro_torch_kernels/<hash>/`` under the checkout (keyed on a hash
+of the source and the flags, so an edit rebuilds). Nothing is compiled
+or loaded at import time: this module imports on a machine without CUDA.
+
+``LAUNCHES`` counts the launches of each kernel. Each kernel wrapper adds
+one where it launches its kernel and nowhere else, so a run can show
+that it went through the kernels; ``reset_launches`` zeroes the counts.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, Optional
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_HERE, "csrc", "wire_kernels.cu")
+#: src/repro_torch/kernels -> the checkout root, three levels up
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
+BUILD_ROOT = os.path.join(_REPO_ROOT, "build", "repro_torch_kernels")
+#: no --use_fast_math: the kernels need div.rn.f32 (see the .cu header)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES: Dict[str, int] = {"quantize_blocks": 0, "dequantize_blocks": 0,
+                            "quantize_topk_blocks": 0}
+
+_VOIDP = ctypes.c_void_p
+_INT = ctypes.c_int
+_FLOAT = ctypes.c_float
+_SIGNATURES = {
+    # x, codes, scales, n_blocks, block, bits, inv, stream
+    "quantize_blocks_launch": [_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT,
+                               _FLOAT, _VOIDP],
+    # codes, scales, out, n_blocks, block, stream
+    "dequantize_blocks_launch": [_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _VOIDP],
+    # x, codes, scales, mask, n_blocks, block, bits, inv, k, stream
+    "quantize_topk_blocks_launch": [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
+                                    _INT, _INT, _FLOAT, _INT, _VOIDP],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    """``nvcc`` on ``PATH``, else under the toolkit PyTorch finds
+    (``CUDA_HOME``, ``CUDA_PATH`` or the default install)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: put the CUDA toolkit's bin on PATH "
+                       "or set CUDA_HOME to build the wire kernels")
+
+
+def library_path() -> str:
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_ROOT, digest.hexdigest()[:16],
+                        "libwire_kernels.so")
+
+
+def _build(out: str) -> None:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    # compile to a temporary name and rename, so a concurrent or
+    # interrupted build never leaves a half-written library behind
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernels' shared library, once per
+    process."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    if not torch.cuda.is_available():
+        raise RuntimeError("the wire kernels need a CUDA device")
+    out = library_path()
+    if not os.path.exists(out):
+        _build(out)
+    lib = ctypes.CDLL(out)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _INT
+    _lib = lib
+    return lib
+
+
+def check_cuda_tensor(t: torch.Tensor, dtype: torch.dtype, ndim: int,
+                      what: str) -> None:
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got "
+                         f"{getattr(t, 'device', type(t))}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{what}: expected {ndim} dims, got shape "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise on a refused launch (the C entry points return
+    cudaGetLastError())."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

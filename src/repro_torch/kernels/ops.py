@@ -1,0 +1,108 @@
+"""Public wire-path wrappers, dispatched by the tensor's device.
+
+A CUDA tensor goes to the hand-written kernels (``kernels/quantize.py``,
+``kernels/wire.py``), which launch or raise; a CPU tensor goes to the
+plain versions in ``kernels/ref.py``. There is no switch and no
+fallback: the device of the data decides. A non-tensor input is placed
+on ``device`` first, and ``device=None`` means ``"cuda"``.
+
+``LAUNCHES`` counts each kernel's launches (see ``cuda_lib``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import quantize as qk
+from repro_torch.kernels import ref
+from repro_torch.kernels import wire as wk
+from repro_torch.kernels.cuda_lib import LAUNCHES, reset_launches  # noqa: F401
+
+
+def _as_tensor(x, device: DeviceLike) -> torch.Tensor:
+    if isinstance(x, torch.Tensor) and device is None:
+        return x
+    return torch.as_tensor(x, device=resolve_device(device))
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.is_cuda:
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def _blocks(x: torch.Tensor, block: int):
+    """Flatten to f32 and zero-pad the tail within its own block ->
+    ((ceil(n/block), block) contiguous, n)."""
+    flat = x.reshape(-1).to(torch.float32)
+    n = flat.shape[0]
+    pad = (-n) % block
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    return flat.reshape(-1, block).contiguous(), n
+
+
+def quantize_dequantize(x, *, bits: int, block: int = 256,
+                        topk: Optional[int] = None,
+                        device: DeviceLike = None) -> torch.Tensor:
+    """Wire round trip (quantize then dequantize), any shape; ``topk``
+    keeps the k largest-magnitude codes per block (dropped coordinates
+    come back exactly 0.0)."""
+    x = _as_tensor(x, device)
+    if not _on_card(x):
+        return ref.quantize_dequantize_ref(x, bits, block, topk=topk)
+    shape, dtype = x.shape, x.dtype
+    blocks, n = _blocks(x, block)
+    if n == 0:
+        return torch.empty(shape, dtype=dtype, device=x.device)
+    if topk is not None and topk < block:
+        codes, scales, _ = wk.quantize_topk_blocks(blocks, bits, topk)
+    else:
+        codes, scales = qk.quantize_blocks(blocks, bits)
+    deq = qk.dequantize_blocks(codes, scales)
+    return deq.reshape(-1)[:n].reshape(shape).to(dtype)
+
+
+def dequantize_blocks(codes, scales, *, device: DeviceLike = None):
+    """Decode wire blocks: (n_blocks, block) int8 codes x per-block f32
+    scales -> (n_blocks, block) f32 (code 0 -> exactly 0.0)."""
+    codes = _as_tensor(codes, device)
+    scales = _as_tensor(scales, device)
+    if not _on_card(codes):
+        return ref.dequantize_blocks_ref(codes, scales)
+    return qk.dequantize_blocks(codes.contiguous(), scales.contiguous())
+
+
+def quantize_wire(x, *, bits: int, block: int = 256,
+                  topk: Optional[int] = None, device: DeviceLike = None):
+    """Quantize a tensor into the wire tuple actually shipped:
+    ``(codes int8 (n_blocks, block), scales f32 (n_blocks,),
+    mask int8 (n_blocks, block) | None, n_valid)`` with exactly
+    ``n_blocks = ceil(n / block)``, so ``core.compression.wire_bytes``
+    prices this tuple. ``mask`` is None for the dense format and for
+    ``topk >= block``."""
+    x = _as_tensor(x, device)
+    card = _on_card(x)
+    if topk is not None and topk >= block:
+        topk = None
+    blocks, n = _blocks(x, block)
+    if n == 0:
+        empty = torch.zeros((0, block), dtype=torch.int8, device=x.device)
+        return (empty, torch.zeros((0,), dtype=torch.float32, device=x.device),
+                None if topk is None else empty.clone(), 0)
+    if topk is not None:
+        if card:
+            codes, scales, mask = wk.quantize_topk_blocks(blocks, bits, topk)
+        else:
+            codes, scales, mask = ref.quantize_topk_blocks_ref(blocks, bits,
+                                                               topk)
+        return codes, scales, mask, n
+    if card:
+        codes, scales = qk.quantize_blocks(blocks, bits)
+    else:
+        codes, scales = ref.quantize_blocks_ref(blocks, bits)
+    return codes, scales, None, n

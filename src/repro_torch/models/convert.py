@@ -1,0 +1,111 @@
+"""The parameter layout of the port, and the bridge to and from the JAX
+parameter tree.
+
+Parameters keep the JAX tree path for path: the port's parameter dict
+maps each dotted path (``"stack.units.b0.attn.wq"``) to a tensor of the
+JAX leaf's shape, in JAX's leaf order (dict keys sorted at every level),
+so that every loop over leaves (``count_active``, the wire accounting)
+adds in the reference's order. The scan-stacked unit leaves keep their
+leading ``n_units`` axis: AdamW's ``ndim >= 2`` decay rule and the
+per-unit freezing mask both read that layout.
+
+``ParamTree`` is the ``nn.Module`` that holds such a dict, with the same
+dotted names as its parameter names. ``params_from_numpy`` and
+``params_to_numpy`` move a JAX tree (as a nested dict of NumPy arrays)
+in and out, so both packages can run from the same initial weights.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+
+Params = Dict[str, torch.Tensor]
+
+
+def _path_key(name: str):
+    return tuple(name.split("."))
+
+
+def jax_order(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """The same mapping with keys in JAX's leaf order."""
+    return {k: flat[k] for k in sorted(flat, key=_path_key)}
+
+
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dict -> {dotted path: leaf} in JAX's leaf order."""
+    out: Dict[str, Any] = {}
+    for key in sorted(tree):
+        value = tree[key]
+        name = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(flatten(value, name + "."))
+        elif isinstance(value, (list, tuple)):
+            raise NotImplementedError(
+                f"{name}: list-valued subtrees (prefix/suffix layers) are "
+                f"not ported yet")
+        else:
+            out[name] = value
+    return out
+
+
+def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """{dotted path: leaf} -> nested dict (no copies)."""
+    tree: Dict[str, Any] = {}
+    for name, leaf in flat.items():
+        node = tree
+        *parents, last = name.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree
+
+
+class ParamTree(nn.Module):
+    """An ``nn.Module`` whose parameter names are the JAX tree paths.
+
+    The parameters do not require grad: the client computes gradients
+    functionally on detached copies (see ``core.client``)."""
+
+    def __init__(self, flat: Mapping[str, torch.Tensor]):
+        super().__init__()
+        for name, t in jax_order(flat).items():
+            *parents, last = name.split(".")
+            mod: nn.Module = self
+            for p in parents:
+                if p not in mod._modules:
+                    mod.add_module(p, nn.Module())
+                mod = mod._modules[p]
+            mod.register_parameter(last, nn.Parameter(t, requires_grad=False))
+
+    def params(self) -> Params:
+        """The parameter dict (sharing storage), in JAX's leaf order."""
+        return jax_order({n: p.detach() for n, p in self.named_parameters()})
+
+
+def as_params(params: Union[ParamTree, Mapping[str, torch.Tensor]]) -> Params:
+    """Accept a ``ParamTree`` or a parameter dict; return the dict."""
+    if isinstance(params, ParamTree):
+        return params.params()
+    return dict(params)
+
+
+def params_from_numpy(tree: Mapping[str, Any],
+                      device: DeviceLike = None) -> ParamTree:
+    """JAX params as a nested dict of NumPy arrays -> ``ParamTree`` on
+    ``device`` (``None`` -> ``"cuda"``), same paths, shapes and dtypes."""
+    dev = resolve_device(device)
+    flat = flatten(tree)
+    return ParamTree({name: torch.from_numpy(np.array(leaf, copy=True)).to(dev)
+                      for name, leaf in flat.items()})
+
+
+def params_to_numpy(params: Union[ParamTree, Mapping[str, torch.Tensor]]
+                    ) -> Dict[str, Any]:
+    """The inverse: a nested dict of NumPy arrays in the JAX layout."""
+    return unflatten({name: t.detach().cpu().numpy()
+                      for name, t in as_params(params).items()})

@@ -1,0 +1,255 @@
+"""The port's wire path against the JAX reference, bit for bit.
+
+On the CPU: the plain PyTorch versions (``repro_torch.kernels.ref``) and
+the device dispatch (``repro_torch.kernels.ops``) are held against
+``repro.kernels.ref`` and against the Pallas kernels run in interpret
+mode, on the same numpy inputs. Every comparison is exact (floats
+compared as bit patterns): the wire format is integer codes and fp32
+scales computed with the same correctly rounded operations.
+
+On a card (tests marked ``cuda``): each CUDA kernel against its plain
+version on the same CUDA tensors, bit for bit. Those need no JAX, so
+the JAX package is imported by a fixture, not at the top: on a machine
+with a card and no JAX the reference tests skip and the card tests run.
+"""
+import types
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import compression  # noqa: E402
+from repro_torch.kernels import cuda_lib, ops, ref  # noqa: E402
+
+BLOCK = 256
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The JAX reference's wire path."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.core import compression as comp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    from repro.kernels import wire as jwire
+    from repro.kernels.quantize import dequantize_blocks, quantize_blocks
+    return types.SimpleNamespace(jnp=jnp, comp=comp, ops=jops, ref=jref,
+                                 wire=jwire, quant=quantize_blocks,
+                                 deq=dequantize_blocks)
+
+
+def bits_equal(a, b):
+    """Exact equality, floats compared as bit patterns (so -0.0 != 0.0
+    and NaNs must match)."""
+    a = np.asarray(a)
+    b = np.asarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, a.dtype,
+                                                       b.shape, b.dtype)
+    if a.dtype == np.float32:
+        a, b = a.view(np.uint32), b.view(np.uint32)
+    np.testing.assert_array_equal(a, b)
+
+
+def delta_like(rng, n_blocks, block=BLOCK):
+    """Update-like rows: normal x 1e-3 with exact zeros, one all-zero row,
+    tied magnitudes of both signs, and exact half-step values."""
+    x = (rng.normal(size=(n_blocks, block)) * 1e-3).astype(np.float32)
+    x[rng.random(size=x.shape) < 0.05] = 0.0
+    if n_blocks > 1:
+        x[1] = 0.0                                   # all-zero row
+    if n_blocks > 2:
+        x[2, :40] = x[2, 40]                         # ties inside a row
+        x[2, 40:60] = -x[2, 40]
+    if n_blocks > 3:
+        # absmax 2 with values at +-1: x/scale = +-0.5 at 2 bits, which
+        # rounds half to even (to 0)
+        x[3] = 0.0
+        x[3, 0] = 2.0
+        x[3, 1:64:2] = 1.0
+        x[3, 2:64:2] = -1.0
+    return x
+
+
+# ---------------------------------------------------------------------------
+# plain versions vs the JAX reference and the Pallas kernels (interpret)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [8, 2])
+def test_quantize_dequantize_blocks_twins(bits, J):
+    x = delta_like(np.random.default_rng(bits), 16)
+    codes, scales = ref.quantize_blocks_ref(torch.from_numpy(x), bits)
+    jc, js = J.ref.quantize_blocks_ref(J.jnp.asarray(x), bits)
+    pc, ps = J.quant(J.jnp.asarray(x), bits, interpret=True)
+    for want_c, want_s in ((jc, js), (pc, ps)):
+        bits_equal(codes.numpy(), want_c)
+        bits_equal(scales.numpy(), want_s)
+    deq = ref.dequantize_blocks_ref(codes, scales)
+    bits_equal(deq.numpy(), J.ref.dequantize_blocks_ref(jc, js))
+    bits_equal(deq.numpy(), J.deq(pc, ps, interpret=True))
+
+
+@pytest.mark.parametrize("bits", [8, 2])
+@pytest.mark.parametrize("k", [1, 32, 64, 255])
+def test_quantize_topk_blocks_twin(bits, k, J):
+    x = delta_like(np.random.default_rng(k), 16)
+    codes, scales, mask = ref.quantize_topk_blocks_ref(torch.from_numpy(x),
+                                                       bits, k)
+    assert mask.sum(dim=1).tolist() == [k] * 16
+    want = [J.ref.quantize_topk_blocks_ref(J.jnp.asarray(x), bits, k),
+            J.wire.quantize_topk_blocks(J.jnp.asarray(x), bits, k,
+                                       interpret=True)]
+    for jc, js, jm in want:
+        bits_equal(codes.numpy(), jc)
+        bits_equal(scales.numpy(), js)
+        bits_equal(mask.numpy(), jm)
+
+
+SHAPES = [(), (1,), (37,), (3, 129), (5, 7, 11), (0,), (3, 256),
+          (256 * 8 + 17,), (64, 256)]
+
+
+@pytest.fixture(params=["ref", "pallas"])
+def jax_backend(request, monkeypatch, J):
+    monkeypatch.setattr(J.ops, "FORCE_BACKEND", request.param)
+    return request.param
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("q,topk", [(1, None), (2, None), (1, 32), (2, 64),
+                                    (2, 256)])
+def test_quantize_dequantize_matches_jax(shape, q, topk, jax_backend, J):
+    rng = np.random.default_rng(len(shape) * 7 + q)
+    x = np.asarray(rng.normal(size=shape) * 1e-3, dtype=np.float32)
+    if x.size > 300:
+        x.reshape(-1)[:256] = 0.0                   # an all-zero block
+    bits = 8 if q == 1 else 2
+    got = ops.quantize_dequantize(torch.from_numpy(x), bits=bits, topk=topk)
+    if x.size == 0:
+        # the Pallas grid cannot take an empty operand: hold the empty
+        # leaf against the reference's plain path only
+        want = J.ref.quantize_dequantize_ref(J.jnp.asarray(x), bits, topk=topk)
+    else:
+        want = J.ops.quantize_dequantize(J.jnp.asarray(x), bits=bits, topk=topk)
+    bits_equal(got.numpy(), want)
+    # the tree-level entry point quantizes each leaf on its own
+    tree = compression.compress_decompress(
+        {"a": torch.from_numpy(x), "b": torch.from_numpy(x[..., None])},
+        q, topk=topk)
+    bits_equal(tree["a"].numpy(), want)
+    bits_equal(tree["b"].numpy(), np.asarray(want)[..., None])
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 1000, 256 * 8 + 17])
+@pytest.mark.parametrize("q,topk", [(1, None), (2, None), (1, 32), (2, 64),
+                                    (1, 256)])
+def test_quantize_wire_tuple_and_wire_bytes(n, q, topk, jax_backend, J):
+    """The tuple equals the reference's, has exactly ceil(n/256) blocks,
+    and wire_bytes prices exactly it (packed codes + 1-bit mask for
+    top-k + fp32 scales) in both packages."""
+    x = (np.random.default_rng(n).normal(size=(n,)) * 1e-3).astype(np.float32)
+    bits = 8 if q == 1 else 2
+    codes, scales, mask, n_valid = ops.quantize_wire(torch.from_numpy(x),
+                                                     bits=bits, topk=topk)
+    jc, js, jm, jn = J.ops.quantize_wire(J.jnp.asarray(x), bits=bits, topk=topk)
+    n_blocks = -(-n // BLOCK)
+    assert n_valid == jn == n
+    assert codes.shape == (n_blocks, BLOCK) and scales.shape == (n_blocks,)
+    bits_equal(codes.numpy(), jc)
+    bits_equal(scales.numpy(), js)
+    sparse = topk is not None and topk < BLOCK
+    if sparse:
+        bits_equal(mask.numpy(), jm)
+        modeled = (n_blocks * topk * bits + mask.numel()) // 8 + scales.numel() * 4
+    else:
+        assert mask is None and jm is None
+        modeled = codes.numel() * bits // 8 + scales.numel() * 4
+    got = compression.wire_bytes(torch.from_numpy(x), q=q, topk=topk)
+    assert got == modeled
+    assert got == J.comp.wire_bytes(J.jnp.asarray(x), q=q, topk=topk)
+
+
+def test_cpu_tensors_never_touch_the_kernels(monkeypatch):
+    """CPU tensors take the plain versions: the kernel loader is never
+    called and no launch is counted."""
+    def refuse():
+        raise AssertionError("a CPU tensor reached the CUDA kernel loader")
+
+    monkeypatch.setattr(cuda_lib, "load_library", refuse)
+    before = dict(ops.LAUNCHES)
+    x = torch.from_numpy(delta_like(np.random.default_rng(3), 4))
+    ops.quantize_dequantize(x, bits=8)
+    ops.quantize_dequantize(x, bits=2, topk=32)
+    ops.quantize_wire(x, bits=8, topk=64)
+    c, s, _, _ = ops.quantize_wire(x, bits=2)
+    ops.dequantize_blocks(c, s)
+    compression.compress_decompress({"w": x}, 2, topk=64)
+    assert ops.LAUNCHES == before
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels import quantize, wire
+    x = torch.zeros((2, BLOCK))
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize.quantize_blocks(x, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        wire.quantize_topk_blocks(x, 8, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize.dequantize_blocks(torch.zeros((2, BLOCK), dtype=torch.int8),
+                                   torch.zeros(2))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels against their plain versions (on a card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+class TestCudaKernels:
+    SHAPES = [(1, BLOCK), (3, BLOCK), (64, BLOCK), (1728, BLOCK), (0, BLOCK),
+              (5, 100), (7, 1024)]
+
+    @pytest.mark.parametrize("shape", SHAPES, ids=str)
+    @pytest.mark.parametrize("bits", [8, 2])
+    def test_quantize_dequantize(self, card, shape, bits):
+        from repro_torch.kernels import quantize
+        x = torch.from_numpy(delta_like(np.random.default_rng(1), *shape)
+                             ).to(card)
+        codes, scales = quantize.quantize_blocks(x, bits)
+        want_c, want_s = ref.quantize_blocks_ref(x, bits)
+        deq = quantize.dequantize_blocks(codes, scales)
+        torch.cuda.synchronize()
+        bits_equal(codes.cpu().numpy(), want_c.cpu().numpy())
+        bits_equal(scales.cpu().numpy(), want_s.cpu().numpy())
+        bits_equal(deq.cpu().numpy(),
+                   ref.dequantize_blocks_ref(want_c, want_s).cpu().numpy())
+
+    @pytest.mark.parametrize("shape", SHAPES, ids=str)
+    @pytest.mark.parametrize("bits,k", [(8, 32), (2, 64), (8, 1), (2, 99)])
+    def test_quantize_topk(self, card, shape, bits, k):
+        from repro_torch.kernels import wire
+        x = torch.from_numpy(delta_like(np.random.default_rng(2), *shape)
+                             ).to(card)
+        got = wire.quantize_topk_blocks(x, bits, k)
+        want = ref.quantize_topk_blocks_ref(x, bits, k)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            bits_equal(g.cpu().numpy(), w.cpu().numpy())
+
+    def test_ops_count_launches(self, card):
+        x = torch.from_numpy(delta_like(np.random.default_rng(4), 9)).to(card)
+        before = dict(ops.LAUNCHES)
+        y = ops.quantize_dequantize(x, bits=2, topk=64)
+        assert ops.LAUNCHES["quantize_topk_blocks"] == \
+            before["quantize_topk_blocks"] + 1
+        assert ops.LAUNCHES["dequantize_blocks"] == \
+            before["dequantize_blocks"] + 1
+        bits_equal(y.cpu().numpy(),
+                   ref.quantize_dequantize_ref(x, 2, topk=64).cpu().numpy())
