@@ -9,22 +9,38 @@ before the final line:
 1. device: the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and the time to build the wire kernels from
    ``src/repro_torch/kernels/csrc`` (nvcc, at first use, into ``build/``).
-2. kernels: each CUDA kernel against its plain PyTorch version on the
+2. kernels: each wire kernel against its plain PyTorch version on the
    card, bit for bit, on every parameter-leaf shape of the full-width
    char-LM (delta-like values) and on edge cases; then its time per
    client delta (the 16 leaf launches of one ``finalize_delta``) from
    CUDA events, beside its plain version's, a one-call library
    equivalent where one exists, and the least time the card could take.
+   The masked-sum fold likewise, at C in {1, 2, 6, 17} clients and
+   n in {1, 511, 513, 1,900,800} columns (random and all-ones uint64),
+   timed at one full-width round's fold (C = 6, n = 1,900,800) beside
+   ``torch.sum`` over int64; and the host work of one masked round
+   (fixed point, pairwise masks, the fold's copies).
 3. rounds: the full-width ``charlm-shakespeare`` model through five
    CAFL-L client rounds on the card (policy -> ``train_client`` x 6 ->
    ``aggregate`` -> ``apply_delta`` -> usage -> ``dual_update`` ->
-   eval), with the launch counters zeroed just before and read just
-   after: three rounds from zero duals (q = 0, then q = 2), one at
+   eval): three rounds from zero duals (q = 0, then q = 2), one at
    lambda_C = 0.5 (q = 1), one with ``wire_topk = 64``. Then one
    client's first microbatch on the card and on the CPU from the same
    parameters and batch.
-4. the ``{"kernels": [...]}`` summary, the nvidia-smi line, and the
+4. engine: ``repro_torch.launch.train.main(["--method", "both",
+   "--rounds", "3", ...])`` (FedAvg then CAFL-L through
+   ``FederatedEngine`` with the sync aggregator) in torch's default
+   mode, its histories and checkpoints read back; then the CAFL-L engine
+   with the sync and with the masked aggregator, both under
+   ``torch.use_deterministic_algorithms(True)``, held to each other at
+   the reference's tolerances (and the sync one set beside
+   ``train.main``'s default-mode CAFL-L run).
+5. the ``{"kernels": [...]}`` summary, the nvidia-smi line, and the
    final ``{"ok": true, ...}`` line.
+
+Each path of phases 3 and 4 (each engine run) runs with the launch
+counters zeroed just before it and read just after, and fails if a
+kernel of that path was never launched.
 
 Where the time goes under torch.profiler is ``scripts/profile_port.py``'s
 work, not this script's.
@@ -37,9 +53,11 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -50,6 +68,18 @@ import torch  # noqa: E402
 
 BLOCK = 256
 SOURCE = "src/repro_torch/kernels/csrc/wire_kernels.cu"
+#: rounds of each engine run (train.main's FedAvg and CAFL-L, the masked
+#: CAFL-L run)
+ENGINE_ROUNDS = 3
+#: masked against sync, the reference's own bounds
+#: (tests/test_fl_aggregator.py::test_engine_masked_matches_sync)
+MASKED_TRAIN_ATOL = 1e-6
+MASKED_VAL_ATOL = 2e-3
+#: the masked-sum cases: clients x columns (1,900,800 = the full-width
+#: char-LM's parameter count, one round's fold)
+SUM_COHORTS = (1, 2, 6, 17)
+SUM_WIDTHS = (1, 511, 513, 1_900_800)
+SUM_TIMED = (6, 1_900_800)
 #: per-card data-sheet rates (NVIDIA, dense, no sparsity): device-memory
 #: bytes/s and fp32 (non-tensor-core) operations/s
 CARD_RATES = {
@@ -263,6 +293,102 @@ def kernel_records(leaves, card_name: str):
                   "fp32_ops_per_s": fp32_rate}
 
 
+def check_masked_sum(dev) -> float:
+    """``masked_sum_limbs`` against its plain version on the card, bit
+    for bit, on random and all-ones uint64 cohorts; returns the largest
+    |kernel - plain| over both limbs of every case."""
+    from repro_torch.kernels import ops, ref, wire
+    rng = np.random.default_rng(11)
+    worst = 0.0
+    for c in SUM_COHORTS:
+        for n in SUM_WIDTHS:
+            for fill in ("random", "ones"):
+                if fill == "ones":
+                    vals = np.full((c, n), 2 ** 64 - 1, dtype=np.uint64)
+                else:
+                    vals = rng.integers(0, 2 ** 64, size=(c, n),
+                                        dtype=np.uint64)
+                hi, lo = (torch.from_numpy(x).to(dev)
+                          for x in ops.split_limbs(vals))
+                got = wire.masked_sum_limbs(hi, lo)
+                want = ref.masked_sum_ref(hi, lo)
+                torch.cuda.synchronize()
+                gap = max_gap(*((g.view(torch.int32).long() & 0xFFFFFFFF,
+                                 w.view(torch.int32).long() & 0xFFFFFFFF)
+                                for g, w in zip(got, want)))
+                worst = max(worst, gap)
+                check(all(bits_equal(g, w) for g, w in zip(got, want)),
+                      f"masked_sum_limbs differs at C={c} n={n} {fill}")
+                if fill == "random" and n == SUM_WIDTHS[-1]:
+                    # the host-level fold too, against NumPy's uint64 sum
+                    check(np.array_equal(ops.masked_sum_u64(vals, device=dev),
+                                         np.add.reduce(vals, axis=0)),
+                          f"masked_sum_u64 differs at C={c}")
+    return worst
+
+
+def masked_sum_record(dev, card_name: str):
+    """Time one full-width round's fold (C = 6, n = 1,900,800) on the
+    card beside its plain version and ``torch.sum`` over int64."""
+    from repro_torch.kernels import ref, wire
+    _, (bw, _) = card_rates(card_name)
+    c, n = SUM_TIMED
+    vals = np.random.default_rng(12).integers(0, 2 ** 64, size=(c, n),
+                                              dtype=np.uint64)
+    from repro_torch.kernels.ops import split_limbs
+    hi, lo = (torch.from_numpy(x).to(dev) for x in split_limbs(vals))
+    stacked = torch.from_numpy(vals.view(np.int64)).to(dev)
+    # read C*n uint64 as limbs, write n uint64
+    bytes_ = 8 * c * n + 8 * n
+    return {
+        "name": "masked_sum_limbs", "route": "cuda", "source": SOURCE,
+        "replaces": "src/repro/kernels/wire.py:130",
+        "ms": time_ms(lambda: wire.masked_sum_limbs(hi, lo)),
+        "plain_ms": time_ms(lambda: ref.masked_sum_ref(hi, lo)),
+        "library_ms": time_ms(lambda: torch.sum(stacked, dim=0)),
+        "bound_ms": bytes_ / bw * 1e3, "bound_by": "bytes",
+        "clients": c, "columns": n, "bytes_per_s": bw}
+
+
+def masked_round_host(dev, model) -> dict:
+    """The host side of one full-width masked round, timed on the host
+    clock: each of 6 clients' ``submit`` (fixed point + 5 pairwise masks
+    of 1.9M uint64) and the ``flush`` (stack, the fold's copies and
+    launch, the mean back on the card)."""
+    from repro_torch.configs.charlm_shakespeare import FL
+    from repro_torch.core.policy import fedavg_knobs
+    from repro_torch.fl import (ClientInfo, ClientReport, DeviceProfile,
+                                FedAvg, MaskedSumAggregator)
+    params = model.init(torch.Generator().manual_seed(3), dev).params()
+    cohort = [ClientInfo(i, DeviceProfile("default", FL.budgets), 1)
+              for i in range(FL.clients_per_round)]
+    kn = fedavg_knobs(FL)
+    agg = MaskedSumAggregator()
+    agg.reset(FedAvg(FL).aggregate)
+    agg.begin_round(1, cohort)
+    submit_s = []
+    for ci in cohort:
+        delta = {k: v * 1e-3 for k, v in params.items()}
+        t0 = time.perf_counter()
+        agg.submit(ClientReport(client=ci, delta=delta, weight=1.0, knobs=kn,
+                                policy_knobs=kn, round_trained=1))
+        submit_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    update = agg.flush(1)
+    torch.cuda.synchronize()
+    flush_s = time.perf_counter() - t0
+    mean = update.delta
+    check(all(t.is_cuda for t in mean.values()),
+          "the masked mean did not come back on the card")
+    err = max(float((mean[k] - params[k] * 1e-3).abs().max()) for k in mean)
+    check(err <= 1e-6, f"masked mean off the plain mean by {err}")
+    return {"phase": "masked_host", "clients": len(cohort),
+            "columns": sum(t.numel() for t in params.values()),
+            "submit_s": submit_s, "flush_s": flush_s,
+            "round_host_s": sum(submit_s) + flush_s,
+            "mean_max_abs_err": err}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the CAFL-L client rounds
 # ---------------------------------------------------------------------------
@@ -409,6 +535,158 @@ def cpu_card_microbatch(cfg, fl, ds, params):
     check(rel <= CPU_CARD_RTOL, f"card and CPU losses differ by {rel}")
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the engine through its entry points
+# ---------------------------------------------------------------------------
+
+
+def engine_rounds(method: str, aggregator: str, mode: str, history) -> None:
+    for r in history:
+        rec = r if isinstance(r, dict) else r.__dict__
+        emit({"phase": "engine_round", "method": method,
+              "aggregator": aggregator, "mode": mode,
+              **{k: rec[k] for k in ("round", "knobs", "val_loss",
+                                     "train_loss", "duals", "participants",
+                                     "wire_mb_actual", "seconds")}})
+
+
+def drive_train(dev, out_dir: str):
+    """``launch.train.main`` (FedAvg then CAFL-L, sync aggregator) on the
+    card, in torch's default (nondeterministic) mode as a user runs it;
+    its histories and checkpoints read back. The launch counts are zeroed
+    just before it and read just after."""
+    from repro_torch import checkpointing
+    from repro_torch.configs import get_fl_config
+    from repro_torch.core.duals import DualState
+    from repro_torch.core.policy import fedavg_knobs, policy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    out = os.path.join(out_dir, "fl")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    results = train.main(["--method", "both", "--rounds", str(ENGINE_ROUNDS),
+                          "--out", out, "--device", str(dev), "--quiet"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    fl = get_fl_config().replace(rounds=ENGINE_ROUNDS)
+    for method, res in results.items():
+        with open(f"{out}_{method}.json") as f:
+            payload = json.load(f)
+        check(payload["method"] == method and
+              len(payload["history"]) == ENGINE_ROUNDS,
+              f"{method}: history file does not hold {ENGINE_ROUNDS} rounds")
+        engine_rounds(method, "sync", "default", payload["history"])
+        prev = DualState()
+        for r in res.history:
+            check(math.isfinite(r.val_loss) and math.isfinite(r.train_loss),
+                  f"{method} round {r.round}: non-finite loss")
+            check(all(lam >= 0.0 for lam in r.duals.values()),
+                  f"{method} round {r.round}: negative dual {r.duals}")
+            want = (fedavg_knobs(fl) if method == "fedavg"
+                    else policy(prev, fl)).as_dict()
+            check(r.knobs == want, f"{method} round {r.round}: knobs "
+                  f"{r.knobs} do not follow the duals ({want})")
+            prev = DualState(lam=dict(r.duals))
+        back = checkpointing.load(f"{out}_{method}.ckpt", res.final_params)
+        check(all(bits_equal(back[k], v)
+                  for k, v in res.final_params.items()),
+              f"{method}: checkpoint does not read back with the same bits")
+    check(any(r.knobs["q"] > 0 for r in results["cafl"].history),
+          "CAFL-L never compressed")
+    check(launches["quantize_blocks"] > 0
+          and launches["dequantize_blocks"] > 0,
+          f"the engine path launched no wire kernel: {launches}")
+    emit({"phase": "engine", "runs": "train.main --method both",
+          "mode": "default", "seconds": seconds, "launches": launches})
+    return results["cafl"].history, launches
+
+
+def drive_masked(dev, default_cafl):
+    """The CAFL-L engine twice more on the card, with the sync and then
+    the masked aggregator, held to each other at the reference's own
+    tolerances. Those assume a deterministic backend; left to its atomic
+    adds (the embedding lookup's backward), an H100 does not repeat a run
+    bit for bit, and one masked run's train loss parted from its sync
+    run's by 1.7e-6. So both run under
+    ``torch.use_deterministic_algorithms(True)``; every output is written
+    in full, so fresh tensors need no pre-fill. ``default_cafl`` (the
+    CAFL-L history of ``drive_train``, default mode, same seed) is set
+    beside the deterministic sync run: participants and knobs must be
+    equal, and the loss gaps are the card's nondeterminism, reported."""
+    from repro_torch.configs import get_config, get_fl_config
+    from repro_torch.data import load_corpus
+    from repro_torch.fl import FederatedEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+
+    ds = load_corpus()
+    cfg = get_config("charlm-shakespeare")
+    if cfg.vocab_size < ds.vocab_size:
+        cfg = cfg.replace(vocab_size=ds.vocab_size)
+    fl = get_fl_config().replace(rounds=ENGINE_ROUNDS)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        runs, launches = {}, {}
+        for aggregator in ("sync", "masked"):
+            engine = FederatedEngine(build(cfg), fl, ds, strategy="cafl",
+                                     aggregator=aggregator, device=dev)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            runs[aggregator] = engine.run().history
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[aggregator] = dict(ops.LAUNCHES)
+            engine_rounds("cafl", aggregator, "deterministic",
+                          runs[aggregator])
+            emit({"phase": "engine", "runs": f"cafl {aggregator}",
+                  "mode": "deterministic", "seconds": seconds,
+                  "launches": launches[aggregator]})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    sync, masked = runs["sync"], runs["masked"]
+    for aggregator, counts in launches.items():
+        check(counts["quantize_blocks"] > 0
+              and counts["dequantize_blocks"] > 0,
+              f"the {aggregator} engine run launched no wire kernel: "
+              f"{counts}")
+    with_reports = sum(1 for r in masked if r.participants)
+    check(launches["masked"]["masked_sum_limbs"] == with_reports,
+          f"{launches['masked']['masked_sum_limbs']} masked_sum_limbs "
+          f"launches for {with_reports} rounds with reporters")
+    for a, b in zip(sync, masked):
+        check(a.participants == b.participants,
+              f"round {a.round}: masked participants {b.participants} != "
+              f"sync {a.participants}")
+        check(abs(a.train_loss - b.train_loss) <= MASKED_TRAIN_ATOL,
+              f"round {a.round}: masked train loss {b.train_loss} vs sync "
+              f"{a.train_loss}")
+        check(abs(a.val_loss - b.val_loss) <= MASKED_VAL_ATOL,
+              f"round {a.round}: masked val loss {b.val_loss} vs sync "
+              f"{a.val_loss}")
+    for a, b in zip(default_cafl, sync):
+        check(a.participants == b.participants and a.knobs == b.knobs,
+              f"round {a.round}: the default-mode run's participants or "
+              f"knobs differ from the deterministic run's")
+    emit({"phase": "masked_vs_sync", "mode": "deterministic",
+          "max_train_loss_gap": max(abs(a.train_loss - b.train_loss)
+                                    for a, b in zip(sync, masked)),
+          "max_val_loss_gap": max(abs(a.val_loss - b.val_loss)
+                                  for a, b in zip(sync, masked)),
+          "train_atol": MASKED_TRAIN_ATOL, "val_atol": MASKED_VAL_ATOL})
+    emit({"phase": "default_vs_deterministic", "aggregator": "sync",
+          "max_train_loss_gap": max(abs(a.train_loss - b.train_loss)
+                                    for a, b in zip(default_cafl, sync)),
+          "max_val_loss_gap": max(abs(a.val_loss - b.val_loss)
+                                  for a, b in zip(default_cafl, sync))})
+    return {k: launches["sync"][k] + launches["masked"][k]
+            for k in launches["sync"]}
+
+
 def full_width(dev):
     """The full-width char-LM's config (vocab widened to the corpus), FL
     config, corpus, model, and one delta-like tensor per parameter leaf
@@ -437,6 +715,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # deterministic cuBLAS for drive_masked; read when the first cuBLAS
+    # handle is made, so it is set before any work
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = resolve_device("cuda")
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
@@ -452,21 +733,38 @@ def main() -> int:
           model.param_count()["total"], "leaves": len(leaves)})
 
     worst = check_kernels(leaves, dev)
+    worst["masked_sum_limbs"] = check_masked_sum(dev)
     recs, sizes = kernel_records(leaves, name)
     for r in recs:
         emit({"phase": "kernel", **r, **sizes})
+    rec = masked_sum_record(dev, name)
+    emit({"phase": "kernel", **rec})
+    recs.append(rec)
+    emit(masked_round_host(dev, model))
 
     t0 = time.perf_counter()
     init_params, rounds, launches = drive_rounds(dev, cfg, fl, ds)
     rounds_s = time.perf_counter() - t0
-    for r in recs:
-        check(launches[r["name"]] > 0,
-              f"{r['name']} was not launched on the main path")
-        r["launches"] = launches[r["name"]]
-        r["max_abs_err"] = worst[r["name"]]
     emit({"phase": "rounds", "rounds": len(rounds), "seconds": rounds_s,
           "launches": launches})
+    for kernel in ("quantize_blocks", "dequantize_blocks",
+                   "quantize_topk_blocks"):
+        check(launches[kernel] > 0,
+              f"{kernel} was not launched on the client-round path")
     cpu_card_microbatch(cfg, fl, ds, init_params)
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        default_cafl, train_launches = drive_train(dev, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    det_launches = drive_masked(dev, default_cafl)
+    for r in recs:
+        r["launches"] = (launches[r["name"]] + train_launches[r["name"]]
+                         + det_launches[r["name"]])
+        check(r["launches"] > 0,
+              f"{r['name']} was not launched on the main path")
+        r["max_abs_err"] = worst[r["name"]]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -13,6 +13,16 @@ Prints JSON lines:
   steps): wall time per microbatch without the profiler, per step part
   (grad, masked AdamW, the wire round trip) with a synchronize around
   each, and the device's busy share and top kernels under the profiler.
+- ``masked_fold``: one full-width round's masked-sum fold (6 clients x
+  1,900,800 uint64): ``masked_sum_limbs``'s device time under the
+  profiler, and ``ops.masked_sum_u64``'s host-clock time split into its
+  steps (split limbs, copy to the card, kernel, copy back, merge).
+- ``engine_round``: ``--engine-rounds`` CAFL-L rounds of
+  ``FederatedEngine`` on the card with each aggregator ("sync", then
+  "masked"), each round split at the engine's own callback hooks (with a
+  synchronize at each): eval, LocalTrain plus aggregation, accounting;
+  the aggregator's ``submit`` / ``flush`` time is taken out of the
+  middle part as ``aggregate_s``.
 
 The default knobs are those ``chip_smoke.py``'s second round runs at
 (q = 2 from the comm dual). ``chip_smoke.py`` checks the port; this
@@ -29,10 +39,11 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from chip_smoke import (check, emit, full_width, leaf_blocks,  # noqa: E402
-                        nvidia_smi_line)
+from chip_smoke import (SUM_TIMED, check, emit, full_width,  # noqa: E402
+                        leaf_blocks, nvidia_smi_line)
 
 
 def device_kernels(fn, reps: int = 1):
@@ -83,6 +94,107 @@ def wire_kernel_device_us(leaves, bits: int = 2, k: int = 64) -> dict:
             lambda: [wire.quantize_topk_blocks(b, bits, k) for b in blocks],
             "quantize_topk_blocks"),
     }
+
+
+def synced() -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def masked_fold(dev) -> dict:
+    """One full-width round's fold: the kernel's device time and the
+    host-clock steps of ``ops.masked_sum_u64``."""
+    from repro_torch.kernels import ops, wire
+    c, n = SUM_TIMED
+    vals = np.random.default_rng(12).integers(0, 2 ** 64, size=(c, n),
+                                              dtype=np.uint64)
+    hi, lo = (torch.from_numpy(x).to(dev) for x in ops.split_limbs(vals))
+    device_us = kernel_device_us(lambda: wire.masked_sum_limbs(hi, lo),
+                                 "masked_sum_limbs")
+    ops.masked_sum_u64(vals, device=dev)                     # warm up
+    steps = {}
+
+    def step(name, fn):
+        t0 = synced()
+        out = fn()
+        steps[name] = synced() - t0
+        return out
+
+    hi_np, lo_np = step("split_s", lambda: ops.split_limbs(vals))
+    hi_t, lo_t = step("to_card_s", lambda: (torch.from_numpy(hi_np).to(dev),
+                                            torch.from_numpy(lo_np).to(dev)))
+    h, l_ = step("kernel_s", lambda: wire.masked_sum_limbs(hi_t, lo_t))
+    h_np, l_np = step("to_host_s", lambda: (h.cpu().numpy(), l_.cpu().numpy()))
+    total = step("merge_s", lambda: ops.merge_limbs(h_np, l_np))
+    again = step("masked_sum_u64_s",
+                 lambda: ops.masked_sum_u64(vals, device=dev))
+    check(np.array_equal(total, again), "masked fold steps disagree")
+    return {"phase": "masked_fold", "clients": c, "columns": n,
+            "kernel_device_us": device_us, **steps}
+
+
+def engine_rounds(dev, rounds: int) -> list:
+    """CAFL-L through ``FederatedEngine`` with each aggregator, each
+    round split at the engine's callback hooks."""
+    from repro_torch.configs import get_config, get_fl_config
+    from repro_torch.data import load_corpus
+    from repro_torch.fl import FederatedEngine, RoundCallback
+    from repro_torch.models import build
+
+    class PhaseTimer(RoundCallback):
+        def __init__(self):
+            self.rows, self.row, self.t = [], {}, {}
+
+        def on_round_start(self, engine, rnd):
+            self.row = {"round": rnd, "aggregate_s": 0.0}
+            self.t["start"] = synced()
+
+        def on_round_composed(self, engine, plan):
+            self.t["composed"] = synced()
+            self.row["eval_s"] = self.t["composed"] - self.t["start"]
+
+        def on_server_update(self, engine, update):
+            self.t["updated"] = synced()
+            self.row["train_and_aggregate_s"] = (self.t["updated"]
+                                                 - self.t["composed"])
+
+        def on_round_end(self, engine, record):
+            end = synced()
+            self.row["accounting_s"] = end - self.t["updated"]
+            self.row["round_s"] = end - self.t["start"]
+            self.rows.append(self.row)
+
+    def timed(fn, timer):
+        def run(*args):
+            t0 = synced()
+            out = fn(*args)
+            timer.row["aggregate_s"] += synced() - t0
+            return out
+        return run
+
+    ds = load_corpus()
+    cfg = get_config("charlm-shakespeare")
+    if cfg.vocab_size < ds.vocab_size:
+        cfg = cfg.replace(vocab_size=ds.vocab_size)
+    fl = get_fl_config().replace(rounds=rounds)
+    out = []
+    for aggregator in ("sync", "masked"):
+        timer = PhaseTimer()
+        engine = FederatedEngine(build(cfg), fl, ds, strategy="cafl",
+                                 aggregator=aggregator, callbacks=[timer],
+                                 device=dev)
+        agg = engine.aggregator
+        agg.submit, agg.flush = timed(agg.submit, timer), timed(agg.flush,
+                                                                timer)
+        result = engine.run()
+        for row, rec in zip(timer.rows, result.history):
+            row = {"phase": "engine_round", "aggregator": aggregator,
+                   "knobs": rec.knobs, **row}
+            row["local_train_s"] = (row["train_and_aggregate_s"]
+                                    - row["aggregate_s"])
+            emit(row)
+            out.append(row)
+    return out
 
 
 def profile_client(model, fl, ds, params, kn) -> dict:
@@ -140,6 +252,7 @@ def main(argv=None) -> int:
     ap.add_argument("--q", type=int, default=2)
     ap.add_argument("--grad-accum", type=int, default=2)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--engine-rounds", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
@@ -154,6 +267,8 @@ def main(argv=None) -> int:
     kn = Knobs(k=args.k, s=args.steps, b=args.b, q=args.q,
                grad_accum=args.grad_accum)
     emit(profile_client(model, fl, ds, params, kn))
+    emit(masked_fold(dev))
+    engine_rounds(dev, args.engine_rounds)
     return 0
 
 

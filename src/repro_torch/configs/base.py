@@ -4,10 +4,13 @@ The fields of ``repro.configs.base`` that the char-LM client round
 reads, with the same defaults; dtypes are ``torch`` dtypes. The port's
 model is the char-LM's architecture (layer norm, tanh-GELU MLP, tied
 embeddings, learned positions plus RoPE, global causal attention), so
-the reference's switches between architectures are not fields here, and
-neither are the engine's settings; they come with the slices that port
-them. ``InputShape`` and the MoE / MLA / RG-LRU / xLSTM / frontend
-configs are not ported yet.
+the reference's switches between architectures are not fields here.
+``FLConfig`` carries the engine's one choice that has two ported values,
+the aggregator; the reference's other engine fields (executor, server
+optimizer, constraint stack, dual overrides, time mode, horizon) name
+pieces the port has one value of or none yet (ROADMAP queues 7 and 8),
+so they are not fields here. ``InputShape`` and the MoE / MLA / RG-LRU /
+xLSTM / frontend configs are not ported yet.
 """
 from __future__ import annotations
 
@@ -67,9 +70,10 @@ class DualConfig:
 
 @dataclass(frozen=True)
 class FLConfig:
-    """Federated-learning configuration of the client round (paper §5)."""
+    """Federated-learning experiment configuration (paper §5)."""
     num_clients: int = 16
     clients_per_round: int = 6
+    rounds: int = 60
     # baseline knobs (k_base, s_base, b_base): the paper does not publish
     # them; chosen so FedAvg violates comm ~5x and memory ~1.1x (Fig. 2)
     k_base: int = 6                   # all layers unfrozen
@@ -80,6 +84,7 @@ class FLConfig:
     optimizer: str = "adamw"
     weight_decay: float = 0.01
     seed: int = 0
+    method: str = "cafl"              # cafl | fedavg
     budgets: Budgets = field(default_factory=Budgets)
     duals: DualConfig = field(default_factory=DualConfig)
     eval_batches: int = 8
@@ -93,6 +98,9 @@ class FLConfig:
     # sparse wire format: keep the k largest-magnitude codes per
     # 256-value block (None = dense; only active at q > 0)
     wire_topk: Any = None
+    # server-update policy (repro_torch.fl): "sync" (round barrier) |
+    # "masked" (secure-aggregation simulation)
+    aggregator: str = "sync"
 
     def replace(self, **kw) -> "FLConfig":
         return dataclasses.replace(self, **kw)

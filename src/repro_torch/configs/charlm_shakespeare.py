@@ -34,6 +34,7 @@ SMOKE = CONFIG.replace(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
 FL = FLConfig(
     num_clients=16,
     clients_per_round=6,
+    rounds=25,
     k_base=6,
     s_base=40,
     b_base=32,

@@ -12,4 +12,6 @@ from repro_torch.core.resources import (  # noqa: F401
 )
 from repro_torch.core import aggregation  # noqa: F401
 from repro_torch.core.client import ClientResult, ClientRunner  # noqa: F401
-from repro_torch.core.server import FLResult, RoundRecord, make_eval_fn  # noqa: F401
+from repro_torch.core.server import (  # noqa: F401
+    FLResult, RoundRecord, make_eval_fn, run_federated,
+)

@@ -8,8 +8,8 @@ excess (u/b - 1) outside. The arithmetic is the reference's, float for
 float (``repro.core.duals`` and its default controller,
 ``DeadzoneSubgradient``), so the duals of the two packages are equal;
 that includes the band's edge, where ``1.05 - 1.0`` is
-``0.050000000000000044`` and so lies outside a 0.05 band. The
-pluggable constraint stack is not ported yet.
+``0.050000000000000044`` and so lies outside a 0.05 band. The update law
+itself lives in ``repro_torch.constraints.controllers``.
 """
 from __future__ import annotations
 
@@ -49,18 +49,14 @@ def usage_ratios(usage: Dict[str, float], budgets: Budgets) -> Dict[str, float]:
     return {r: usage[r] / b[r] for r in RESOURCES}
 
 
-def _deadzone_step(lam: float, ratio: float, cfg: DualConfig) -> float:
-    """The paper's Eq. 4: lambda <- clip(lambda + eta * dz(u/b))."""
-    lam = lam + cfg.eta * deadzone(ratio, cfg.deadzone)
-    return float(min(max(lam, 0.0), cfg.lambda_max))
-
-
 def dual_update(state: DualState, usage: Dict[str, float], budgets: Budgets,
                 cfg: DualConfig) -> DualState:
     """One server-side dual ascent step (Algorithm 1, line 17) over the
-    paper's four resources."""
+    paper's four resources, by the default ``DeadzoneSubgradient``."""
+    from repro_torch.constraints.controllers import DeadzoneSubgradient
+    ctrl = DeadzoneSubgradient()
     ratios = usage_ratios(usage, budgets)
-    new = {r: _deadzone_step(state.lam[r], ratios[r], cfg) for r in RESOURCES}
+    new = {r: ctrl.step(r, state.lam[r], ratios[r], cfg) for r in RESOURCES}
     return DualState(lam=new)
 
 

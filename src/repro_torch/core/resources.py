@@ -15,6 +15,7 @@ counts.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict
 
@@ -50,6 +51,14 @@ class ResourceModel:
         m = self.alpha_m * (0.2 + self.beta_m * params_active * knobs.b)
         t = self.alpha_t * (0.35 + self.gamma_t * s_eff + self.delta_t * knobs.b)
         return {"energy": e, "comm": c, "memory": m, "temp": t}
+
+    def scaled(self, energy: float = 1.0, comm: float = 1.0,
+               memory: float = 1.0, temp: float = 1.0) -> "ResourceModel":
+        """Per-device-class efficiency variant (>1 = less efficient than
+        the calibration device); ``fl.device`` profiles use it."""
+        return dataclasses.replace(
+            self, alpha_e=self.alpha_e * energy, kappa_c=self.kappa_c * comm,
+            alpha_m=self.alpha_m * memory, alpha_t=self.alpha_t * temp)
 
 
 def calibrate(params_active_base: float, fl: FLConfig) -> ResourceModel:

@@ -1,6 +1,10 @@
-"""CAFL-L server pieces (Algorithm 1): the round records and the eval
-function. The federated loop itself (``run_federated`` and the engine)
-is not ported yet.
+"""CAFL-L / FedAvg server entry point (Algorithm 1).
+
+The federated loop lives in ``repro_torch.fl`` (``FederatedEngine``);
+``run_federated`` is the reference's thin wrapper over it. This module
+keeps the result dataclasses and ``make_eval_fn``, so ``repro_torch.core``
+and ``repro_torch.fl`` have no import cycle (the wrapper imports the
+engine lazily).
 """
 from __future__ import annotations
 
@@ -11,6 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig
+from repro_torch.core.duals import DualState
+from repro_torch.core.resources import ResourceModel
 from repro_torch.data.shakespeare import CharDataset, sample_batch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.convert import as_params
@@ -83,3 +89,24 @@ def make_eval_fn(model: Model, dataset: CharDataset, fl: FLConfig,
         return float(np.mean(losses))
 
     return evaluate
+
+
+def run_federated(model: Model, fl: FLConfig, dataset: CharDataset,
+                  method: Optional[str] = None, rounds: Optional[int] = None,
+                  resources: Optional[ResourceModel] = None,
+                  init_params=None, init_duals: Optional[DualState] = None,
+                  log=print, device: DeviceLike = None) -> FLResult:
+    """The reference's entry point: a ``FederatedEngine`` with the default
+    homogeneous fleet and a logging callback, on ``device`` (``None`` ->
+    ``"cuda"``)."""
+    from repro_torch.fl.callbacks import LoggingCallback
+    from repro_torch.fl.engine import FederatedEngine
+
+    engine = FederatedEngine(
+        model, fl, dataset,
+        strategy=method or fl.method,
+        callbacks=[LoggingCallback(log)] if log else [],
+        resources=resources,
+        init_duals=init_duals,
+        device=device)
+    return engine.run(rounds=rounds, init_params=init_params)

@@ -1,6 +1,6 @@
-// Wire kernels of the CAFL-L client round for Hopper (sm_90a).
+// Wire kernels of the CAFL-L round for Hopper (sm_90a).
 //
-// Three kernels, each behind a plain C entry point that launches it on the
+// Four kernels, each behind a plain C entry point that launches it on the
 // caller's stream and returns cudaGetLastError(); the Python wrappers in
 // repro_torch/kernels/{quantize,wire}.py load this file's shared library
 // with ctypes, allocate every output, and raise on a non-zero return.
@@ -22,6 +22,10 @@
 // device memory again, but it costs `block` compares per value, so this
 // kernel sits far above the function's byte bound (a radix select would
 // cut that).
+//
+// The masked-sum fold (masked_sum_limbs_kernel) is integer arithmetic,
+// exact by construction, and bound by bytes too: each limb is read once
+// and each sum written once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -123,6 +127,32 @@ __global__ void quantize_topk_blocks_kernel(const float* __restrict__ x,
   if (i == 0) scales[row] = scale;
 }
 
+// Replaces repro/kernels/wire.py::masked_sum_limbs (_masked_sum_kernel).
+// hi, lo: (rows, n) uint32 limbs of uint64 values. One thread owns one
+// column: it walks the rows, adds ((uint64)hi << 32) | lo in uint64 (which
+// wraps mod 2^64, so no radix-2^16 digits or carry ripple are needed on
+// this card) and writes the sum's two limbs. Consecutive threads read
+// consecutive columns, so every row read is coalesced; a ragged n is a
+// bounds check, with no padding to a tile.
+__global__ void masked_sum_limbs_kernel(const uint32_t* __restrict__ hi,
+                                        const uint32_t* __restrict__ lo,
+                                        uint32_t* __restrict__ hi_out,
+                                        uint32_t* __restrict__ lo_out,
+                                        int rows, int64_t n) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (j >= n) return;
+  uint64_t acc = 0;
+  for (int r = 0; r < rows; ++r) {
+    const int64_t at = r * n + j;
+    acc += (static_cast<uint64_t>(hi[at]) << 32) | lo[at];
+  }
+  hi_out[j] = static_cast<uint32_t>(acc >> 32);
+  lo_out[j] = static_cast<uint32_t>(acc);
+}
+
+constexpr int kSumThreads = 256;
+
 inline int threads_for(int block) {
   return (block + kWarp - 1) / kWarp * kWarp;
 }
@@ -160,6 +190,16 @@ int quantize_topk_blocks_launch(const void* x, void* codes, void* scales,
       static_cast<const float*>(x), static_cast<int8_t*>(codes),
       static_cast<float*>(scales), static_cast<int8_t*>(mask), block, qmax,
       inv, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int masked_sum_limbs_launch(const void* hi, const void* lo, void* hi_out,
+                            void* lo_out, int rows, int64_t n, void* stream) {
+  const int64_t grid = (n + kSumThreads - 1) / kSumThreads;
+  masked_sum_limbs_kernel<<<static_cast<unsigned int>(grid), kSumThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
+      static_cast<uint32_t*>(hi_out), static_cast<uint32_t*>(lo_out), rows, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,11 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: Dict[str, int] = {"quantize_blocks": 0, "dequantize_blocks": 0,
-                            "quantize_topk_blocks": 0}
+                            "quantize_topk_blocks": 0, "masked_sum_limbs": 0}
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
+_INT64 = ctypes.c_int64
 _SIGNATURES = {
     # x, codes, scales, n_blocks, block, bits, inv, stream
     "quantize_blocks_launch": [_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT,
@@ -46,6 +47,9 @@ _SIGNATURES = {
     # x, codes, scales, mask, n_blocks, block, bits, inv, k, stream
     "quantize_topk_blocks_launch": [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
                                     _INT, _INT, _FLOAT, _INT, _VOIDP],
+    # hi, lo, hi_out, lo_out, rows, n, stream
+    "masked_sum_limbs_launch": [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _INT64,
+                                _VOIDP],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -66,7 +70,7 @@ def _nvcc() -> str:
     if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
         return os.path.join(CUDA_HOME, "bin", "nvcc")
     raise RuntimeError("nvcc not found: put the CUDA toolkit's bin on PATH "
-                       "or set CUDA_HOME to build the wire kernels")
+                       "or set CUDA_HOME to build the CUDA kernels")
 
 
 def library_path() -> str:
@@ -98,7 +102,7 @@ def load_library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     if not torch.cuda.is_available():
-        raise RuntimeError("the wire kernels need a CUDA device")
+        raise RuntimeError("the CUDA kernels need a CUDA device")
     out = library_path()
     if not os.path.exists(out):
         _build(out)

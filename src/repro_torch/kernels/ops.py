@@ -1,4 +1,5 @@
-"""Public wire-path wrappers, dispatched by the tensor's device.
+"""Public wire-path and masked-sum wrappers, dispatched by the tensor's
+device.
 
 A CUDA tensor goes to the hand-written kernels (``kernels/quantize.py``,
 ``kernels/wire.py``), which launch or raise; a CPU tensor goes to the
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
@@ -106,3 +108,60 @@ def quantize_wire(x, *, bits: int, block: int = 256,
     else:
         codes, scales = ref.quantize_blocks_ref(blocks, bits)
     return codes, scales, None, n
+
+
+# ---------------------------------------------------------------------------
+# fixed-point masked sum (secure-aggregation cohort fold)
+# ---------------------------------------------------------------------------
+
+MASKED_SUM_MAX_CLIENTS = ref.MASKED_SUM_MAX_CLIENTS
+
+
+def split_limbs(u64: np.ndarray):
+    """NumPy uint64 (C, n) -> ((C, n) hi, (C, n) lo) uint32 limb pairs."""
+    u64 = np.ascontiguousarray(u64, dtype=np.uint64)
+    return ((u64 >> np.uint64(32)).astype(np.uint32),
+            (u64 & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def merge_limbs(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """(hi, lo) uint32 -> NumPy uint64, elementwise."""
+    return ((np.asarray(hi, dtype=np.uint64) << np.uint64(32))
+            | np.asarray(lo, dtype=np.uint64))
+
+
+def _check_cohort(c: int) -> None:
+    if c > MASKED_SUM_MAX_CLIENTS:
+        raise ValueError(
+            f"masked_sum supports at most {MASKED_SUM_MAX_CLIENTS} clients "
+            f"per fold, got {c}")
+
+
+def masked_sum(hi, lo, *, device: DeviceLike = None):
+    """Sum C clients' uint64 vectors mod 2^64, carried as uint32 limbs:
+    (C, n) hi/lo -> ((n,) hi, (n,) lo) uint32. The card runs
+    ``wire.masked_sum_limbs``; the CPU its plain version. Bit-exact
+    either way (integer arithmetic)."""
+    hi = _as_tensor(hi, device)
+    lo = _as_tensor(lo, device)
+    _check_cohort(hi.shape[0])
+    if not _on_card(hi):
+        return ref.masked_sum_ref(hi, lo)
+    return wk.masked_sum_limbs(hi.contiguous(), lo.contiguous())
+
+
+def masked_sum_u64(vals: np.ndarray, *, device: DeviceLike = None
+                   ) -> np.ndarray:
+    """Host-level cohort fold: NumPy (C, n) uint64 -> (n,) sum mod 2^64.
+
+    The ``MaskedSumAggregator`` flush path: the limbs are split on the
+    host, copied to ``device`` (``None`` -> ``"cuda"``), summed there and
+    merged back. There is no CPU shortcut on a card: asked for the card,
+    it launches the kernel or raises."""
+    vals = np.ascontiguousarray(vals, dtype=np.uint64)
+    _check_cohort(vals.shape[0])
+    dev = resolve_device(device)
+    hi, lo = split_limbs(vals)
+    hi_s, lo_s = masked_sum(torch.from_numpy(hi).to(dev),
+                            torch.from_numpy(lo).to(dev))
+    return merge_limbs(hi_s.cpu().numpy(), lo_s.cpu().numpy())

@@ -1,5 +1,8 @@
 """Plain PyTorch versions of the wire kernels (the correctness reference).
 
+The masked-sum version (``masked_sum_ref``) is integer arithmetic and
+exact by construction; the quantizers' notes follow.
+
 Each function repeats the arithmetic of its twin in ``repro.kernels.ref``
 and of the CUDA kernel in ``csrc/wire_kernels.cu`` operation for
 operation, so the three agree bit for bit: the scale is a multiply by the
@@ -93,3 +96,53 @@ def quantize_dequantize_ref(x: torch.Tensor, bits: int, block: int = 256,
         codes, scales = quantize_blocks_ref(blocks, bits)
     deq = dequantize_blocks_ref(codes, scales)
     return deq.reshape(-1)[:n].reshape(shape).to(dtype)
+
+
+#: column sums of 16-bit digits stay exact in uint32 up to this many
+#: clients per fold (sum <= C * 0xffff < 2^32): the reference's guard,
+#: kept so both packages refuse the same cohorts
+MASKED_SUM_MAX_CLIENTS = 1 << 16
+
+_MASK16 = 0xFFFF
+_MASK32 = 0xFFFFFFFF
+
+
+def _limbs_i64(x: torch.Tensor) -> torch.Tensor:
+    """uint32 limbs (or an int32 view of them) -> int64 holding the same
+    32-bit patterns, since torch on the CPU has no uint32 arithmetic."""
+    if x.dtype == torch.uint32:
+        x = x.view(torch.int32)
+    elif x.dtype != torch.int32:
+        raise ValueError(f"limbs must be uint32 or int32, got {x.dtype}")
+    return x.to(torch.int64) & _MASK32
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2^32) -> uint32 with the same bits."""
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32).view(
+        torch.uint32)
+
+
+def masked_sum_ref(hi: torch.Tensor, lo: torch.Tensor):
+    """(C, n) uint32 limb pairs -> ((n,), (n,)) uint32, the cohort's sum
+    mod 2^64: the reference's radix-2^16 digit sums and ripple carry,
+    carried in int64 and masked back to 32 bits at the boundary."""
+    if hi.shape != lo.shape or hi.ndim != 2:
+        raise ValueError(f"limbs must be two (C, n) tensors of one shape, "
+                         f"got {tuple(hi.shape)} and {tuple(lo.shape)}")
+    if hi.shape[0] > MASKED_SUM_MAX_CLIENTS:
+        raise ValueError(f"at most {MASKED_SUM_MAX_CLIENTS} clients per "
+                         f"fold, got {hi.shape[0]}")
+    h, l_ = _limbs_i64(hi), _limbs_i64(lo)
+    s0 = torch.sum(l_ & _MASK16, dim=0)
+    s1 = torch.sum(l_ >> 16, dim=0)
+    s2 = torch.sum(h & _MASK16, dim=0)
+    s3 = torch.sum(h >> 16, dim=0)
+    d0 = s0 & _MASK16
+    t1 = s1 + (s0 >> 16)
+    d1 = t1 & _MASK16
+    t2 = s2 + (t1 >> 16)
+    d2 = t2 & _MASK16
+    t3 = s3 + (t2 >> 16)          # carry past bit 64 drops: mod 2^64
+    d3 = t3 & _MASK16
+    return _u32(d2 | (d3 << 16)), _u32(d0 | (d1 << 16))

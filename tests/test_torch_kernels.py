@@ -197,6 +197,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         quantize.dequantize_blocks(torch.zeros((2, BLOCK), dtype=torch.int8),
                                    torch.zeros(2))
+    limbs = torch.zeros((2, 3), dtype=torch.uint32)
+    with pytest.raises(ValueError, match="CUDA"):
+        wire.masked_sum_limbs(limbs, limbs)
 
 
 # ---------------------------------------------------------------------------
@@ -253,3 +256,31 @@ class TestCudaKernels:
             before["dequantize_blocks"] + 1
         bits_equal(y.cpu().numpy(),
                    ref.quantize_dequantize_ref(x, 2, topk=64).cpu().numpy())
+
+    @pytest.mark.parametrize("n", [0, 1, 511, 513, 100_003])
+    @pytest.mark.parametrize("c", [1, 2, 6, 17])
+    def test_masked_sum_limbs(self, card, c, n):
+        """The fold against its plain version on the card, bit for bit:
+        random uint64 with an all-ones row and column (every carry
+        ripples), as uint32 limbs and as int32 views of them."""
+        from repro_torch.kernels import wire
+        vals = np.random.default_rng(c * 7 + n).integers(
+            0, 2 ** 64, size=(c, n), dtype=np.uint64)
+        if n:
+            vals[0, :] = np.uint64(2 ** 64 - 1)
+            vals[:, 0] = np.uint64(2 ** 64 - 1)
+        hi, lo = ops.split_limbs(vals)
+        hi_t = torch.from_numpy(hi).to(card)
+        lo_t = torch.from_numpy(lo).to(card)
+        before = ops.LAUNCHES["masked_sum_limbs"]
+        got = wire.masked_sum_limbs(hi_t, lo_t)
+        got_i32 = wire.masked_sum_limbs(hi_t.view(torch.int32),
+                                        lo_t.view(torch.int32))
+        want = ref.masked_sum_ref(hi_t, lo_t)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["masked_sum_limbs"] == before + (2 if n else 0)
+        for g, g32, w in zip(got, got_i32, want):
+            bits_equal(g.cpu().numpy(), w.cpu().numpy())
+            bits_equal(g32.view(torch.uint32).cpu().numpy(), w.cpu().numpy())
+        np.testing.assert_array_equal(ops.masked_sum_u64(vals, device=card),
+                                      np.add.reduce(vals, axis=0))

@@ -31,14 +31,17 @@ def test_port_imports_no_jax_and_no_reference():
     names = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
     assert "repro_torch.core.client" in names and len(names) >= 25
+    for sub in ("fl.engine", "constraints.knobs", "checkpointing.checkpoint",
+                "launch.train"):
+        assert f"repro_torch.{sub}" in names
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{REPO!r}, {os.path.join(REPO, 'scripts')!r}]\n"
         f"for name in {names!r} + ['chip_smoke', 'profile_port']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
-        "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
-        "             m.startswith('repro.'))\n"
+        "             m.startswith(('jax.', 'jaxlib', 'msgpack')) or\n"
+        "             m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -47,13 +50,15 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.stdout.startswith("ok")
 
 
-def test_entry_points_default_to_the_card_and_raise_without_one():
+def test_entry_points_default_to_the_card_and_raise_without_one(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the defaults run on it")
     from repro_torch.configs.charlm_shakespeare import FL, SMOKE
     from repro_torch.core import ClientRunner, calibrate, make_eval_fn
     from repro_torch.data import FederatedData, load_corpus
+    from repro_torch.fl import FederatedEngine
     from repro_torch.kernels import ops
+    from repro_torch.launch import train
     from repro_torch.models import build, params_from_numpy
 
     model = build(SMOKE)
@@ -69,6 +74,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         params_from_numpy({"io": {"embed": np.zeros((4, 2), np.float32)}})
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.quantize_dequantize(np.zeros(300, np.float32), bits=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FederatedEngine(model, FL, ds)
+    # MaskedSumAggregator's fold
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.masked_sum_u64(np.zeros((2, 3), np.uint64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--rounds", "1", "--quiet",
+                    "--out", str(tmp_path / "fl")])
     # an explicit CPU request runs
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     assert next(iter(params.params().values())).device.type == "cpu"
