@@ -19,7 +19,15 @@ before the final line:
    n in {1, 511, 513, 1,900,800} columns (random and all-ones uint64),
    timed at one full-width round's fold (C = 6, n = 1,900,800) beside
    ``torch.sum`` over int64; and the host work of one masked round
-   (fixed point, pairwise masks, the fold's copies).
+   (fixed point, pairwise masks, the fold's copies). The flash-attention
+   kernel against its plain version over f32 / bf16, D in {24, 128, 256},
+   GQA groups {1, 2, 4}, causal or not, window {None, 64, 4096}, softcap
+   {None, 50}, S in {1, 7, 128, 129, 1000, 8192} and B in {1, 2} (B = 1
+   only at S = 8192), at the tolerances below; then its time at one
+   Gemma2 global and one local layer (B = 1, S = 8192) and at the
+   char-LM eval's shape (B = 64, S = 32, H = 8, D = 24; and S = 128),
+   beside its plain version, the bound and, for the char-LM shapes,
+   SDPA.
 3. rounds: the full-width ``charlm-shakespeare`` model through five
    CAFL-L client rounds on the card (policy -> ``train_client`` x 6 ->
    ``aggregate`` -> ``apply_delta`` -> usage -> ``dual_update`` ->
@@ -35,12 +43,26 @@ before the final line:
    ``torch.use_deterministic_algorithms(True)``, held to each other at
    the reference's tolerances (and the sync one set beside
    ``train.main``'s default-mode CAFL-L run).
-5. the ``{"kernels": [...]}`` summary, the nvidia-smi line, and the
+   The char-LM eval of every round now runs through the flash kernel;
+   the engine lines count its launches.
+5. serve: Gemma2-9B at full width and depth (42 layers, d 3584, vocab
+   256,000, bf16; weights drawn on the card from
+   ``torch.Generator(device="cuda").manual_seed(0)``) through
+   ``launch.steps.make_prefill_step`` on one 8,192-token prompt (longer
+   than the 4,096 window) and 16 greedy ``make_decode_step`` steps: 42
+   flash launches per prefill; the last-token logits against the same
+   model with the plain attention in its place; decode logits after the
+   first and the last step against a prefill over the prompt plus the
+   tokens so far; prefill s and tokens/s, decode ms per token, peak
+   memory, and the kernel's share of prefill device time. A reduction
+   of the ``prefill_32k`` shape (B = 32, S = 32,768) in batch and
+   length; widths unchanged.
+6. the ``{"kernels": [...]}`` summary, the nvidia-smi line, and the
    final ``{"ok": true, ...}`` line.
 
-Each path of phases 3 and 4 (each engine run) runs with the launch
-counters zeroed just before it and read just after, and fails if a
-kernel of that path was never launched.
+Each path of phases 3, 4 and 5 (each engine run, the prefill) runs with
+the launch counters zeroed just before it and read just after, and
+fails if a kernel of that path was never launched.
 
 Where the time goes under torch.profiler is ``scripts/profile_port.py``'s
 work, not this script's.
@@ -50,6 +72,7 @@ JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -68,6 +91,7 @@ import torch  # noqa: E402
 
 BLOCK = 256
 SOURCE = "src/repro_torch/kernels/csrc/wire_kernels.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 #: rounds of each engine run (train.main's FedAvg and CAFL-L, the masked
 #: CAFL-L run)
 ENGINE_ROUNDS = 3
@@ -81,12 +105,36 @@ SUM_COHORTS = (1, 2, 6, 17)
 SUM_WIDTHS = (1, 511, 513, 1_900_800)
 SUM_TIMED = (6, 1_900_800)
 #: per-card data-sheet rates (NVIDIA, dense, no sparsity): device-memory
-#: bytes/s and fp32 (non-tensor-core) operations/s
+#: bytes/s, fp32 (non-tensor-core) operations/s and bf16 tensor-core
+#: operations/s
 CARD_RATES = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100": (3.35e12, 67e12),        # SXM
+    "H100 PCIe": (2.0e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12),
+    "H100": (3.35e12, 67e12, 989e12),        # SXM
 }
+#: the flash kernel's sweep (see the docstring); heads are KVH = 2 times
+#: the group size
+FLASH_DTYPES = ("float32", "bfloat16")
+FLASH_DIMS = (24, 128, 256)
+FLASH_GROUPS = (1, 2, 4)
+FLASH_MASKS = [(causal, window, softcap) for causal in (True, False)
+               for window in (None, 64, 4096) for softcap in (None, 50.0)]
+FLASH_LENGTHS = (1, 7, 128, 129, 1000, 8192)
+#: kernel vs plain version: f32 within 2e-5 at unit-scale inputs (both
+#: fp32, summed in other orders); bf16 within one bf16 ulp of the larger
+#: magnitude plus that f32 bound (both round an fp32 result once; the f32
+#: term covers outputs near zero, where heads of both signs cancel)
+FLASH_F32_ATOL = 2e-5
+#: the serving run: Gemma2-9B, one prompt of 8,192 tokens, 16 decode steps
+SERVE_PROMPT = 8192
+SERVE_STEPS = 16
+#: logits against logits along the bf16 path, as ||a - b|| / ||b||. Each
+#: of the 42 layers rounds its residual update to bf16 (relative spacing
+#: 2^-8), independently in two runs that differ anywhere upstream, so
+#: two runs part by about 2^-8 * sqrt(2 * 42) = 0.036; the check allows
+#: twice that. It holds the kernel against the plain attention inside the
+#: model (a) and decode against prefill (b).
+SERVE_REL_L2 = 2 * 2.0 ** -8 * math.sqrt(2 * 42)
 #: |loss(card) - loss(cpu)| / |loss(cpu)| allowed for one microbatch:
 #: fp32 on both, sums taken in another order (no TF32 on the card)
 CPU_CARD_RTOL = 1e-4
@@ -235,7 +283,7 @@ def kernel_records(leaves, card_name: str):
     """Time each kernel per client delta (the 16 leaf launches) beside its
     plain version, the library call where one exists, and its bound."""
     from repro_torch.kernels import quantize, ref, wire
-    _, (bw, fp32_rate) = card_rates(card_name)
+    _, (bw, fp32_rate, _) = card_rates(card_name)
     blocks = leaf_blocks(leaves)
     n = sum(b.numel() for b in blocks)                # padded values
     nb = sum(b.shape[0] for b in blocks)              # blocks
@@ -331,7 +379,7 @@ def masked_sum_record(dev, card_name: str):
     """Time one full-width round's fold (C = 6, n = 1,900,800) on the
     card beside its plain version and ``torch.sum`` over int64."""
     from repro_torch.kernels import ref, wire
-    _, (bw, _) = card_rates(card_name)
+    _, (bw, _, _) = card_rates(card_name)
     c, n = SUM_TIMED
     vals = np.random.default_rng(12).integers(0, 2 ** 64, size=(c, n),
                                               dtype=np.uint64)
@@ -387,6 +435,130 @@ def masked_round_host(dev, model) -> dict:
             "submit_s": submit_s, "flush_s": flush_s,
             "round_host_s": sum(submit_s) + flush_s,
             "mean_max_abs_err": err}
+
+
+def flash_inputs(gen, b, s, h, kvh, d, dtype, dev):
+    """Unit-normal q (B,S,H,D), k and v (B,S,KVH,D) on the card."""
+    return [torch.randn((b, s, heads, d), generator=gen, device=dev).to(
+        getattr(torch, dtype)) for heads in (h, kvh, kvh)]
+
+
+def flash_gap(got, want, dtype: str):
+    """(largest |kernel - plain|, whether every value is within the
+    stated bound)."""
+    got, want = got.double(), want.double()
+    gap = (got - want).abs()
+    if dtype == "bfloat16":
+        _, e = torch.frexp(torch.maximum(got.abs(), want.abs()).float())
+        bound = torch.ldexp(torch.ones_like(gap), e - 8) + FLASH_F32_ATOL
+    else:
+        bound = torch.full_like(gap, FLASH_F32_ATOL)
+    return float(gap.max()), bool((gap <= bound).all())
+
+
+def check_flash(dev) -> dict:
+    """``flash_attention_bhsd`` against its plain version on the card over
+    the sweep; fails on any value outside the bound. Returns the largest
+    |kernel - plain| per dtype and the number of cases."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst = dict.fromkeys(FLASH_DTYPES, 0.0)
+    cases = 0
+    t0 = time.perf_counter()
+    for s in FLASH_LENGTHS:
+        for b in ((1,) if s == 8192 else (1, 2)):
+            for dtype in FLASH_DTYPES:
+                for d in FLASH_DIMS:
+                    for g in FLASH_GROUPS:
+                        q, k, v = flash_inputs(gen, b, s, 2 * g, 2, d, dtype,
+                                               dev)
+                        for causal, window, softcap in FLASH_MASKS:
+                            kw = dict(causal=causal, window=window,
+                                      softcap=softcap)
+                            got = ops.flash_attention(q, k, v, **kw)
+                            want = ref.flash_attention_ref(q, k, v, **kw)
+                            torch.cuda.synchronize()
+                            gap, ok = flash_gap(got, want, dtype)
+                            worst[dtype] = max(worst[dtype], gap)
+                            cases += 1
+                            check(got.dtype == q.dtype and ok,
+                                  f"flash_attention_bhsd differs at B={b} "
+                                  f"S={s} D={d} g={g} {dtype} {kw}: max "
+                                  f"|gap| {gap}")
+    return {"phase": "flash_check", "cases": cases,
+            "seconds": time.perf_counter() - t0, "max_abs_err": worst,
+            "f32_atol": FLASH_F32_ATOL, "bf16_bound": "1 bf16 ulp + f32_atol"}
+
+
+def flash_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """Unmasked (q, k) pairs of one (batch, head): the work this input
+    needs."""
+    q = np.arange(sq)
+    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+#: (label, B, S, H, KVH, D, dtype, window, softcap) at the main path's
+#: shapes: Gemma2's global and local layers in prefill, and the char-LM
+#: eval (its FL config's seq_len 32; also at FLConfig's default 128)
+FLASH_TIMED = (
+    ("gemma2 global layer", 1, 8192, 16, 8, 256, "bfloat16", None, 50.0),
+    ("gemma2 local layer", 1, 8192, 16, 8, 256, "bfloat16", 4096, 50.0),
+    ("charlm eval", 64, 32, 8, 8, 24, "float32", None, None),
+    ("charlm eval, S = 128", 64, 128, 8, 8, 24, "float32", None, None),
+)
+
+
+def flash_records(dev, card_name: str):
+    """Hold the flash kernel to its plain version at the main path's
+    shapes (the sweep's bounds; fails outside them), and time it there
+    beside the plain version, SDPA where it computes the same function
+    (no softcap, no window: the char-LM), and the bound."""
+    from repro_torch.kernels import ops, ref
+    _, (bw, fp32_rate, bf16_rate) = card_rates(card_name)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    recs = []
+    for label, b, s, h, kvh, d, dtype, window, softcap in FLASH_TIMED:
+        q, k, v = flash_inputs(gen, b, s, h, kvh, d, dtype, dev)
+        kw = dict(causal=True, window=window, softcap=softcap)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        gap, ok = flash_gap(got, want, dtype)
+        check(got.dtype == q.dtype and ok,
+              f"flash_attention_bhsd differs at the {label} shape: max "
+              f"|gap| {gap}")
+        del got, want
+        size = q.element_size()
+        bytes_ = size * (2 * q.numel() + k.numel() + v.numel())
+        ops_ = 4 * b * h * d * flash_pairs(s, s, True, window)
+        rate = bf16_rate if dtype == "bfloat16" else fp32_rate
+        t_bytes, t_ops = bytes_ / bw * 1e3, ops_ / rate * 1e3
+        library = None
+        if window is None and softcap is None:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library = time_ms(lambda: torch.nn.functional.
+                              scaled_dot_product_attention(
+                                  qt, kt, vt, is_causal=True,
+                                  enable_gqa=kvh != h))
+        big = s >= 4096
+        recs.append({
+            "name": "flash_attention_bhsd", "route": "cuda",
+            "source": FLASH_SOURCE,
+            "replaces": "src/repro/kernels/flash_attention.py:90",
+            "shape": label, "batch": b, "seq": s, "heads": h,
+            "kv_heads": kvh, "head_dim": d, "dtype": dtype,
+            "window": window, "softcap": softcap, "max_abs_err": gap,
+            "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                          reps=10 if big else 30),
+            "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                                **kw),
+                                reps=3 if big else 30, warmup=1),
+            "library_ms": library,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_, "operations": ops_, "ops_per_s": rate})
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -598,6 +770,8 @@ def drive_train(dev, out_dir: str):
     check(launches["quantize_blocks"] > 0
           and launches["dequantize_blocks"] > 0,
           f"the engine path launched no wire kernel: {launches}")
+    check(launches["flash_attention_bhsd"] > 0,
+          f"the engine's eval launched no flash kernel: {launches}")
     emit({"phase": "engine", "runs": "train.main --method both",
           "mode": "default", "seconds": seconds, "launches": launches})
     return results["cafl"].history, launches
@@ -651,9 +825,10 @@ def drive_masked(dev, default_cafl):
     sync, masked = runs["sync"], runs["masked"]
     for aggregator, counts in launches.items():
         check(counts["quantize_blocks"] > 0
-              and counts["dequantize_blocks"] > 0,
-              f"the {aggregator} engine run launched no wire kernel: "
-              f"{counts}")
+              and counts["dequantize_blocks"] > 0
+              and counts["flash_attention_bhsd"] > 0,
+              f"the {aggregator} engine run launched no wire or flash "
+              f"kernel: {counts}")
     with_reports = sum(1 for r in masked if r.participants)
     check(launches["masked"]["masked_sum_limbs"] == with_reports,
           f"{launches['masked']['masked_sum_limbs']} masked_sum_limbs "
@@ -685,6 +860,146 @@ def drive_masked(dev, default_cafl):
                                   for a, b in zip(default_cafl, sync))})
     return {k: launches["sync"][k] + launches["masked"][k]
             for k in launches["sync"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: Gemma2-9B prefill and decode through the serving steps
+# ---------------------------------------------------------------------------
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def logit_gap(name: str, got, want) -> dict:
+    gap = rel_l2(got, want)
+    rec = {"phase": "serve_check", "check": name, "rel_l2": gap,
+           "max_abs": float((got.double() - want.double()).abs().max()),
+           "max_abs_logit": float(want.abs().max()),
+           "argmax_equal": bool(torch.equal(got.argmax(-1), want.argmax(-1))),
+           "rel_l2_bound": SERVE_REL_L2}
+    emit(rec)
+    check(math.isfinite(gap) and gap <= SERVE_REL_L2,
+          f"{name}: logits part by {gap} (bound {SERVE_REL_L2})")
+    return rec
+
+
+def prefill_device_split(prefill, params, batch) -> dict:
+    """One prefill under torch.profiler: the flash kernel's device time
+    against all device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = prefill(params, batch)
+        torch.cuda.synchronize()
+    total = flash = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            total += e.self_device_time_total
+            if "flash_attention_bhsd_kernel" in e.key:
+                flash += e.self_device_time_total
+    check(total > 0 and flash > 0,
+          "the profiler saw no device time of the flash kernel in prefill")
+    return out, {"prefill_device_us": total, "flash_device_us": flash,
+                 "flash_share": flash / total}
+
+
+def drive_serving(dev, smi: str) -> int:
+    """Gemma2-9B at full width and depth on the card: prefill one
+    8,192-token prompt and decode 16 greedy tokens through the serving
+    steps; returns the flash launches of the timed prefill."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build
+
+    cfg = get_config("gemma2-9b")
+    model = build(cfg)
+    shape = dataclasses.replace(INPUT_SHAPES["prefill_32k"],
+                                seq_len=SERVE_PROMPT, global_batch=1)
+    torch.cuda.reset_peak_memory_stats()
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen, dev).params()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.values())
+    check(n_params == model.param_count()["total"],
+          f"{n_params} parameters drawn, {model.param_count()} expected")
+    prompt = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT),
+                           generator=torch.Generator(device=dev).manual_seed(
+                               1), device=dev)
+    prefill = make_prefill_step(model, shape, max_new_tokens=SERVE_STEPS)
+    decode = make_decode_step(model)
+    prefill(params, {"tokens": prompt[:, :512]})          # warm up
+    torch.cuda.synchronize()
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    check(launches["flash_attention_bhsd"] == cfg.num_layers,
+          f"{launches['flash_attention_bhsd']} flash launches in one "
+          f"prefill, expected {cfg.num_layers}")
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)} not finite or misshapen")
+
+    tokens, step_ms = [], []
+    tok = logits.argmax(-1)
+    first = None
+    for i in range(SERVE_STEPS):
+        tokens.append(tok)
+        t0 = time.perf_counter()
+        out, caches = decode(params, caches, tok)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(out).all()), f"decode step {i}: not finite")
+        if i == 0:
+            first = out.clone()
+        tok = out.argmax(-1)
+    check(ops.LAUNCHES["flash_attention_bhsd"] == cfg.num_layers,
+          "decode launched the flash kernel (its attention is plain)")
+    del caches
+
+    # (b) decode against prefill over the prompt plus the tokens so far;
+    # the first of the two prefills runs under the profiler
+    (after_one, _), split = prefill_device_split(
+        prefill, params, {"tokens": torch.cat([prompt, tokens[0]], 1)})
+    checks = [logit_gap("decode step 1 vs prefill", first, after_one)]
+    after_all, _ = prefill(params, {"tokens": torch.cat([prompt] + tokens,
+                                                        1)})
+    checks.append(logit_gap(f"decode step {SERVE_STEPS} vs prefill", out,
+                            after_all))
+    del after_one, after_all
+
+    # (a) the kernel against the plain attention inside the same model
+    real = ops.flash_attention
+    ops.flash_attention = ref.flash_attention_ref
+    try:
+        plain, _ = prefill(params, {"tokens": prompt})
+    finally:
+        ops.flash_attention = real
+    checks.append(logit_gap("prefill kernel vs plain attention", logits,
+                            plain))
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "serve", "config": cfg.name, "params": n_params,
+          "layers": cfg.num_layers, "dtype": str(cfg.param_dtype),
+          "batch": 1, "prompt": SERVE_PROMPT, "decode_steps": SERVE_STEPS,
+          "reduces": "prefill_32k (B=32, S=32,768): batch and length cut, "
+                     "widths unchanged",
+          "init_s": init_s, "prefill_s": prefill_s,
+          "prefill_tokens_per_s": SERVE_PROMPT / prefill_s,
+          "decode_ms_per_token": statistics.median(step_ms),
+          "decode_step_ms": step_ms, "peak_memory_bytes": peak,
+          "launches": launches, **split,
+          "phase_s": time.perf_counter() - phase_t0, "nvidia_smi": smi})
+    return launches["flash_attention_bhsd"]
 
 
 def full_width(dev):
@@ -741,6 +1056,16 @@ def main() -> int:
     emit({"phase": "kernel", **rec})
     recs.append(rec)
     emit(masked_round_host(dev, model))
+    flash_check = check_flash(dev)
+    emit(flash_check)
+    flash_recs = flash_records(dev, name)
+    for r in flash_recs:
+        emit({"phase": "kernel", **r})
+    rec = dict(flash_recs[0])              # the Gemma2 global layer
+    recs.append(rec)
+    worst["flash_attention_bhsd"] = max(
+        *flash_check["max_abs_err"].values(),
+        *(r["max_abs_err"] for r in flash_recs))
 
     t0 = time.perf_counter()
     init_params, rounds, launches = drive_rounds(dev, cfg, fl, ds)
@@ -748,7 +1073,7 @@ def main() -> int:
     emit({"phase": "rounds", "rounds": len(rounds), "seconds": rounds_s,
           "launches": launches})
     for kernel in ("quantize_blocks", "dequantize_blocks",
-                   "quantize_topk_blocks"):
+                   "quantize_topk_blocks", "flash_attention_bhsd"):
         check(launches[kernel] > 0,
               f"{kernel} was not launched on the client-round path")
     cpu_card_microbatch(cfg, fl, ds, init_params)
@@ -759,9 +1084,11 @@ def main() -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     det_launches = drive_masked(dev, default_cafl)
+    serve_launches = {"flash_attention_bhsd": drive_serving(dev, smi)}
     for r in recs:
         r["launches"] = (launches[r["name"]] + train_launches[r["name"]]
-                         + det_launches[r["name"]])
+                         + det_launches[r["name"]]
+                         + serve_launches.get(r["name"], 0))
         check(r["launches"] > 0,
               f"{r['name']} was not launched on the main path")
         r["max_abs_err"] = worst[r["name"]]

@@ -17,6 +17,12 @@ Prints JSON lines:
   1,900,800 uint64): ``masked_sum_limbs``'s device time under the
   profiler, and ``ops.masked_sum_u64``'s host-clock time split into its
   steps (split limbs, copy to the card, kernel, copy back, merge).
+- ``flash``: the flash-attention kernel at the main path's shapes
+  (``chip_smoke.FLASH_TIMED``: one Gemma2 global and one local layer in
+  prefill, B = 1, S = 8192, bf16; the char-LM eval, B = 64, S = 32 and
+  128, f32): its device time per launch under the profiler (5 launches
+  at S = 8192, 20 otherwise) and, in the same process, the median
+  CUDA-event time of one call as ``chip_smoke.py`` takes it.
 - ``engine_round``: ``--engine-rounds`` CAFL-L rounds of
   ``FederatedEngine`` on the card with each aggregator ("sync", then
   "masked"), each round split at the engine's own callback hooks (with a
@@ -42,8 +48,9 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from chip_smoke import (SUM_TIMED, check, emit, full_width,  # noqa: E402
-                        leaf_blocks, nvidia_smi_line)
+from chip_smoke import (FLASH_TIMED, SUM_TIMED, check, emit,  # noqa: E402
+                        flash_inputs, full_width, leaf_blocks,
+                        nvidia_smi_line, time_ms)
 
 
 def device_kernels(fn, reps: int = 1):
@@ -68,14 +75,14 @@ def device_kernels(fn, reps: int = 1):
     return wall / reps, out
 
 
-def kernel_device_us(fn, name: str, reps: int = 20) -> float:
-    """Device time of one of the wire kernels per call of ``fn``."""
+def kernel_device_us(fn, name: str, reps: int = 20, what: str = "") -> float:
+    """Device time of one of the kernels per call of ``fn``."""
     _, kernels = device_kernels(fn, reps)
     us = [t for key, (_, t) in kernels.items()
           if f"{name}_kernel" in key
           and not (name == "quantize_blocks" and "dequantize" in key)]
-    check(len(us) == 1, f"profiler saw no single {name} kernel: "
-          f"{sorted(kernels)}")
+    check(len(us) == 1, f"profiler saw no single {name} kernel in "
+          f"{reps} calls {what}: {sorted(kernels)}")
     return us[0]
 
 
@@ -94,6 +101,27 @@ def wire_kernel_device_us(leaves, bits: int = 2, k: int = 64) -> dict:
             lambda: [wire.quantize_topk_blocks(b, bits, k) for b in blocks],
             "quantize_topk_blocks"),
     }
+
+
+def flash_times(dev) -> dict:
+    """The flash kernel at each timed shape: device us per launch under
+    the profiler, and the CUDA-event ms of one call, in one process."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(22)
+    out = {}
+    for label, b, s, h, kvh, d, dtype, window, softcap in FLASH_TIMED:
+        q, k, v = flash_inputs(gen, b, s, h, kvh, d, dtype, dev)
+
+        def call():
+            return ops.flash_attention(q, k, v, causal=True, window=window,
+                                       softcap=softcap)
+
+        big = s >= 4096
+        out[label] = {
+            "device_us": kernel_device_us(call, "flash_attention_bhsd",
+                                          reps=5 if big else 20, what=label),
+            "event_ms": time_ms(call, reps=10 if big else 30)}
+    return out
 
 
 def synced() -> float:
@@ -268,6 +296,7 @@ def main(argv=None) -> int:
                grad_accum=args.grad_accum)
     emit(profile_client(model, fl, ds, params, kn))
     emit(masked_fold(dev))
+    emit({"phase": "flash", "times": flash_times(dev)})
     engine_rounds(dev, args.engine_rounds)
     return 0
 

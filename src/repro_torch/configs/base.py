@@ -1,22 +1,23 @@
 """Config dataclasses for the PyTorch port.
 
-The fields of ``repro.configs.base`` that the char-LM client round
-reads, with the same defaults; dtypes are ``torch`` dtypes. The port's
-model is the char-LM's architecture (layer norm, tanh-GELU MLP, tied
-embeddings, learned positions plus RoPE, global causal attention), so
-the reference's switches between architectures are not fields here.
-``FLConfig`` carries the engine's one choice that has two ported values,
-the aggregator; the reference's other engine fields (executor, server
-optimizer, constraint stack, dual overrides, time mode, horizon) name
-pieces the port has one value of or none yet (ROADMAP queues 7 and 8),
-so they are not fields here. ``InputShape`` and the MoE / MLA / RG-LRU /
-xLSTM / frontend configs are not ported yet.
+The fields of ``repro.configs.base`` that the ported models read, with
+the same defaults; dtypes are ``torch`` dtypes. ``ModelConfig`` carries
+the switches of the dense decoder (attention pattern and window,
+softcaps, norm and MLP types, post-norms, embedding options) that the
+char-LM and Gemma2 read; the MoE / MLA / RG-LRU / xLSTM / frontend and
+encoder-decoder sub-configs are not ported yet (ROADMAP queue 1 item
+11), and ``block_pattern`` names block kinds that the port's stack
+refuses. ``FLConfig`` carries the engine's one choice that has two
+ported values, the aggregator; the reference's other engine fields
+(executor, server optimizer, constraint stack, dual overrides, time
+mode, horizon) name pieces the port has one value of or none yet
+(ROADMAP queues 7 and 8), so they are not fields here.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -32,12 +33,39 @@ class ModelConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
-    learned_pos_emb: int              # rows of the learned position table
+    # --- attention ---
+    attn_pattern: Tuple[str, ...] = ("global",)   # per-layer unit, cycled
+    window: int = 4096                # local-attention window
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    qkv_bias: bool = False
     rope_theta: float = 10000.0
+    # decode-time sliding window for long-context shapes (None -> full
+    # cache)
+    decode_window: Optional[int] = 8192
+    # block kinds cycled over layers ("attn" | "rec" | "mlstm" | "slstm");
+    # empty -> every layer is attention
+    block_pattern: Tuple[str, ...] = ()
+    # --- misc ---
+    mlp_type: str = "swiglu"          # geglu | gelu (swiglu: not ported)
+    norm_type: str = "rms"            # rms | layer
+    post_norms: bool = False          # gemma2-style post-attn/post-ffn norms
+    tie_embeddings: bool = True
+    embed_scale: bool = False         # gemma multiplies embeddings by sqrt(d)
+    learned_pos_emb: int = 0          # >0: rows of the learned position table
+    max_seq_len: int = 524_288
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
     q_chunk: int = 2048               # queries per attention chunk
     source: str = ""                  # citation
+
+    def layer_kind(self, i: int) -> str:
+        if self.block_pattern:
+            return self.block_pattern[i % len(self.block_pattern)]
+        return "attn"
+
+    def attn_type(self, i: int) -> str:
+        return self.attn_pattern[i % len(self.attn_pattern)]
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -104,3 +132,19 @@ class FLConfig:
 
     def replace(self, **kw) -> "FLConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}

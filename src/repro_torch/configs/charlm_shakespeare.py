@@ -19,7 +19,12 @@ CONFIG = ModelConfig(
     head_dim=24,
     d_ff=384,
     vocab_size=128,          # rounded up; actual char vocab set by the dataset
+    mlp_type="gelu",
+    norm_type="layer",
+    tie_embeddings=True,
     learned_pos_emb=512,
+    decode_window=None,
+    max_seq_len=512,
     param_dtype=torch.float32,
     compute_dtype=torch.float32,
     q_chunk=512,

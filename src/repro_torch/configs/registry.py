@@ -1,19 +1,20 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
 The reference registers twelve architectures; the port has the paper's
-char-LM only. An id the reference knows but the port lacks raises
-``NotImplementedError`` (ROADMAP queue 1 item 11); an id neither knows
-raises ``KeyError``.
+char-LM and Gemma2-9B (the serving path). An id the reference knows but
+the port lacks raises ``NotImplementedError`` (ROADMAP queue 1 item 11);
+an id neither knows raises ``KeyError``.
 """
 from __future__ import annotations
 
 import importlib
 
-_MODULES = {"charlm-shakespeare": "charlm_shakespeare"}
+_MODULES = {"charlm-shakespeare": "charlm_shakespeare",
+            "gemma2-9b": "gemma2_9b"}
 
 #: registered in ``repro.configs.registry``, not ported yet
 _NOT_PORTED = ("paligemma-3b", "recurrentgemma-2b", "minitron-8b",
-               "gemma2-9b", "xlstm-1.3b", "phi3.5-moe-42b-a6.6b", "qwen2-72b",
+               "xlstm-1.3b", "phi3.5-moe-42b-a6.6b", "qwen2-72b",
                "mistral-large-123b", "deepseek-v3-671b", "seamless-m4t-medium")
 
 

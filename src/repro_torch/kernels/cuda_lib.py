@@ -1,10 +1,12 @@
 """Builds and loads the hand-written CUDA kernels (``csrc/*.cu``).
 
-The source is compiled with ``nvcc`` into a shared library with a plain C
-interface and loaded with ``ctypes``, at first use, into
-``build/repro_torch_kernels/<hash>/`` under the checkout (keyed on a hash
-of the source and the flags, so an edit rebuilds). Nothing is compiled
-or loaded at import time: this module imports on a machine without CUDA.
+Each source is compiled with ``nvcc`` to an object, all of them at once
+(one ``nvcc`` process per source), and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``, at
+first use, into ``build/repro_torch_kernels/<hash>/`` under the checkout
+(keyed on a hash of the sources and the flags, so an edit rebuilds).
+Nothing is compiled or loaded at import time: this module imports on a
+machine without CUDA.
 
 ``LAUNCHES`` counts the launches of each kernel. Each kernel wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
@@ -18,21 +20,25 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "wire_kernels.cu")
+SOURCES = tuple(os.path.join(_HERE, "csrc", name)
+                for name in ("wire_kernels.cu", "flash_attention.cu"))
 #: src/repro_torch/kernels -> the checkout root, three levels up
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_ROOT = os.path.join(_REPO_ROOT, "build", "repro_torch_kernels")
-#: no --use_fast_math: the kernels need div.rn.f32 (see the .cu header)
+#: no --use_fast_math: the kernels need div.rn.f32 and the accurate
+#: expf / tanhf (see the .cu headers)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-Xcompiler", "-fPIC")
 
 LAUNCHES: Dict[str, int] = {"quantize_blocks": 0, "dequantize_blocks": 0,
-                            "quantize_topk_blocks": 0, "masked_sum_limbs": 0}
+                            "quantize_topk_blocks": 0, "masked_sum_limbs": 0,
+                            "flash_attention_bhsd": 0}
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -50,6 +56,12 @@ _SIGNATURES = {
     # hi, lo, hi_out, lo_out, rows, n, stream
     "masked_sum_limbs_launch": [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _INT64,
                                 _VOIDP],
+    # q, k, v, o, dtype, batch, heads, kv_heads, sq, sk, d, strides[12],
+    # scale, causal, window, softcap, stream
+    "flash_attention_bhsd_launch": [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
+                                    _INT, _INT, _INT, _INT, _INT, _INT,
+                                    ctypes.POINTER(ctypes.c_longlong), _FLOAT,
+                                    _INT, _INT, _FLOAT, _VOIDP],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -74,25 +86,35 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            digest.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_ROOT, digest.hexdigest()[:16],
-                        "libwire_kernels.so")
+                        "librepro_torch_kernels.so")
+
+
+def _run(cmd) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                           f"\n{proc.stdout}{proc.stderr}")
 
 
 def _build(out: str) -> None:
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    # compile to a temporary name and rename, so a concurrent or
+    nvcc = _nvcc()
+    # every name is temporary and renamed at the end, so a concurrent or
     # interrupted build never leaves a half-written library behind
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in SOURCES]
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            list(pool.map(_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                                 for src, obj in zip(SOURCES, objs)]))
+        lib = os.path.join(tmp, "lib.so")
+        _run([nvcc, "-shared", "-o", lib, *objs])
+        os.replace(lib, out)
 
 
 def load_library() -> ctypes.CDLL:

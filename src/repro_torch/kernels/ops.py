@@ -1,8 +1,9 @@
-"""Public wire-path and masked-sum wrappers, dispatched by the tensor's
-device.
+"""Public wire-path, masked-sum and attention wrappers, dispatched by the
+tensor's device.
 
 A CUDA tensor goes to the hand-written kernels (``kernels/quantize.py``,
-``kernels/wire.py``), which launch or raise; a CPU tensor goes to the
+``kernels/wire.py``, ``kernels/flash_attention.py``), which launch or
+raise; a CPU tensor goes to the
 plain versions in ``kernels/ref.py``. There is no switch and no
 fallback: the device of the data decides. A non-tensor input is placed
 on ``device`` first, and ``device=None`` means ``"cuda"``.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import quantize as qk
 from repro_torch.kernels import ref
 from repro_torch.kernels import wire as wk
@@ -165,3 +167,27 @@ def masked_sum_u64(vals: np.ndarray, *, device: DeviceLike = None
     hi_s, lo_s = masked_sum(torch.from_numpy(hi).to(dev),
                             torch.from_numpy(lo).to(dev))
     return merge_limbs(hi_s.cpu().numpy(), lo_s.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Model layout: q (B,S,H,D), k/v (B,S,KVH,D) -> (B,S,H,D) in
+    ``q.dtype``. The card runs ``flash_attention_bhsd`` on (B,H,S,D)
+    views of these tensors, writing a (B,S,H,D) output; the CPU runs
+    ``ref.flash_attention_ref``. Forward only."""
+    if not _on_card(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    fak.flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=causal, window=window,
+                             softcap=softcap, scale=scale,
+                             out=out.transpose(1, 2))
+    return out

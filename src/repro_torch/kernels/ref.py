@@ -1,7 +1,10 @@
-"""Plain PyTorch versions of the wire kernels (the correctness reference).
+"""Plain PyTorch versions of the kernels (the correctness reference).
 
 The masked-sum version (``masked_sum_ref``) is integer arithmetic and
-exact by construction; the quantizers' notes follow.
+exact by construction; the flash-attention version
+(``flash_attention_ref``) is the naive O(S^2) fp32 oracle of
+``repro.kernels.ref.flash_attention_ref``, held to the kernel within a
+stated tolerance. The quantizers' notes follow.
 
 Each function repeats the arithmetic of its twin in ``repro.kernels.ref``
 and of the CUDA kernel in ``csrc/wire_kernels.cu`` operation for
@@ -12,6 +15,7 @@ half to even like ``jnp.rint``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -146,3 +150,34 @@ def masked_sum_ref(hi: torch.Tensor, lo: torch.Tensor):
     t3 = s3 + (t2 >> 16)          # carry past bit 64 drops: mod 2^64
     d3 = t3 & _MASK16
     return _u32(d2 | (d3 << 16)), _u32(d0 | (d1 << 16))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,Sq,H,D), k/v: (B,Sk,KVH,D) -> (B,Sq,H,D) in ``q.dtype``.
+
+    fp32 math; the softcap ``c * tanh(s / c)`` comes before the mask;
+    masked scores are -1e30; GQA maps query head ``h`` to kv head
+    ``h // (H // KVH)``. Positions count from 0 in both q and k."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, kvh, g, d).to(torch.float32)
+    # in place after the first product: at S = 8192 each (B,KVH,G,S,S)
+    # fp32 temporary is 4 GiB
+    s = torch.einsum("bqkgd,blkd->bkgql", qg, k.to(torch.float32)).mul_(scale)
+    if softcap is not None:
+        s = s.div_(softcap).tanh_().mul_(softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    w = torch.softmax(s.masked_fill_(~mask, -1e30), dim=-1)
+    out = torch.einsum("bkgql,blkd->bqkgd", w, v.to(torch.float32))
+    return out.reshape(b, sq, h, d).to(q.dtype)

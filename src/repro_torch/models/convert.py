@@ -9,10 +9,19 @@ adds in the reference's order. The scan-stacked unit leaves keep their
 leading ``n_units`` axis: AdamW's ``ndim >= 2`` decay rule and the
 per-unit freezing mask both read that layout.
 
+The layout is the same for every ported config: the char-LM's units
+hold one block ``b0`` with layer norms, a biased GELU MLP and a
+``pos_embed`` table; Gemma2's units hold a local block ``b0`` and a
+global block ``b1``, each with RMS norms (one ``scale`` leaf), the
+``post1`` / ``post2`` norms and a GeGLU MLP, and there is no
+``pos_embed``.
+
 ``ParamTree`` is the ``nn.Module`` that holds such a dict, with the same
 dotted names as its parameter names. ``params_from_numpy`` and
 ``params_to_numpy`` move a JAX tree (as a nested dict of NumPy arrays)
-in and out, so both packages can run from the same initial weights.
+in and out, so both packages can run from the same initial weights; a
+bfloat16 leaf (NumPy's ``ml_dtypes`` type, as JAX hands it out) comes in
+through its 16-bit pattern.
 """
 from __future__ import annotations
 
@@ -99,9 +108,15 @@ def params_from_numpy(tree: Mapping[str, Any],
     """JAX params as a nested dict of NumPy arrays -> ``ParamTree`` on
     ``device`` (``None`` -> ``"cuda"``), same paths, shapes and dtypes."""
     dev = resolve_device(device)
-    flat = flatten(tree)
-    return ParamTree({name: torch.from_numpy(np.array(leaf, copy=True)).to(dev)
-                      for name, leaf in flat.items()})
+    return ParamTree({name: _from_numpy(leaf).to(dev)
+                      for name, leaf in flatten(tree).items()})
+
+
+def _from_numpy(leaf) -> torch.Tensor:
+    a = np.array(leaf, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_to_numpy(params: Union[ParamTree, Mapping[str, torch.Tensor]]

@@ -1,24 +1,31 @@
-"""Model zoo: the decoder-only ``Model`` of the char-LM.
+"""Model zoo: the decoder-only ``Model`` (the char-LM and Gemma2).
 
 ``build(cfg)`` returns a ``Model``:
 
     init(gen, device=None) -> ParamTree
     train_loss(params, batch) -> (loss, metrics)
+    prefill(params, batch, use_decode_window=False, max_new_tokens=0)
+        -> (last_logits (B, 1, V) fp32, decode caches)
+    decode_step(params, caches, tokens (B, 1)) -> (logits (B, 1, V), caches)
+    init_cache(batch_size, ctx_len, long=False, device=None) -> caches
     param_count() -> {"total", "active"}
 
 ``params`` is a ``ParamTree`` or the parameter dict (dotted JAX paths ->
-tensors, see ``models.convert``). A batch holds integer ``tokens`` and
-``targets`` of shape (B, S). The embedding is tied: the unembedding is
-``embed.T``. The loss is the mean cross-entropy over all tokens (the
-reference's chunked CE is one chunk at the char-LM's size) plus an aux
-loss of 0. ``prefill``, ``decode_step``, loss masks and the
+tensors, see ``models.convert``). A batch holds integer ``tokens`` (and
+``targets`` for the loss) of shape (B, S). The embedding may be tied
+(the unembedding is ``embed.T``), scaled by sqrt(d) (Gemma) and joined by
+learned positions (the char-LM). The loss is the mean cross-entropy over
+all tokens (the reference's chunked CE is one chunk at the char-LM's
+size) plus an aux loss of 0. Prefill runs without a gradient, so its
+attention is the flash kernel on the card; ``decode_step`` updates the
+caches in place and returns them. Loss masks, the frontends and the
 encoder-decoder model are not ported yet.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -29,64 +36,147 @@ from repro_torch.models import transformer as T
 from repro_torch.models.convert import ParamTree, as_params, flatten, unflatten
 
 
-def ce_loss(x, w_unembed, targets):
-    """x: (B,S,D), w_unembed: (D,V), targets: (B,S) -> mean CE in fp32."""
+def ce_loss(x, w_unembed, targets, softcap: Optional[float] = None):
+    """x: (B,S,D), w_unembed: (D,V), targets: (B,S) -> mean CE in fp32
+    (over softcapped logits when ``softcap`` is set)."""
     logits = (x @ w_unembed).to(torch.float32)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return torch.sum(lse - ll) / targets.numel()
 
 
 def io_init(gen, cfg: ModelConfig, device):
-    return {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                  cfg.param_dtype, device),
-            "final_norm": L.norm_init(cfg, device),
-            "pos_embed": L.embed_init(gen, cfg.learned_pos_emb, cfg.d_model,
-                                      cfg.param_dtype, device)}
+    p = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                               cfg.param_dtype, device),
+         "final_norm": L.norm_init(cfg, device)}
+    if not cfg.tie_embeddings:
+        p["head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                 cfg.param_dtype, device)
+    if cfg.learned_pos_emb:
+        p["pos_embed"] = L.embed_init(gen, cfg.learned_pos_emb, cfg.d_model,
+                                      cfg.param_dtype, device)
+    return p
 
 
-def embed_tokens(p, tokens, cfg: ModelConfig):
-    """Token embedding plus the learned position of each column."""
+def embed_tokens(p, tokens, cfg: ModelConfig, positions=None):
+    """Token embedding (times sqrt(d) under ``embed_scale``) plus the
+    learned position of each column, or of ``positions`` (decode)."""
     b, s = tokens.shape
     x = torch.index_select(p["embed"], 0, tokens.reshape(-1))
     x = x.reshape(b, s, -1).to(cfg.compute_dtype)
-    return x + p["pos_embed"][:s].to(cfg.compute_dtype)
+    if cfg.embed_scale:
+        x = x * math.sqrt(cfg.d_model)
+    if cfg.learned_pos_emb:
+        pos = (p["pos_embed"][:s] if positions is None
+               else p["pos_embed"][positions.long()])
+        x = x + pos.to(cfg.compute_dtype)
+    return x
+
+
+def unembed_matrix(p, cfg: ModelConfig):
+    return p["embed"].T if cfg.tie_embeddings else p["head"]
+
+
+def logits_fn(p, x, cfg: ModelConfig):
+    logits = (x @ unembed_matrix(p, cfg)).to(torch.float32)
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def _decode_positions(caches) -> Optional[torch.Tensor]:
+    """Absolute position of the new token, (1, 1): any attention cache's
+    index (the stacked per-unit indices are all equal)."""
+    def find(tree):
+        if isinstance(tree, dict):
+            if "index" in tree:
+                return tree["index"]
+            tree = list(tree.values())
+        if isinstance(tree, (list, tuple)):
+            for v in tree:
+                r = find(v)
+                if r is not None:
+                    return r
+        return None
+
+    idx = find(caches)
+    if idx is None:
+        return None
+    return idx.reshape(-1)[0].reshape(1, 1)
 
 
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
-    def init_tree(self, gen: torch.Generator, device: DeviceLike = None):
+    def _init_tree(self, gen, dev: torch.device):
         """The parameters as a nested dict of tensors (the JAX layout)."""
-        dev = resolve_device(device)
         return {"io": io_init(gen, self.cfg, dev),
                 "stack": T.stack_init(gen, self.cfg, dev)}
 
     def init(self, gen: torch.Generator, device: DeviceLike = None
              ) -> ParamTree:
-        """Fresh parameters from ``gen`` (a CPU ``torch.Generator``; the
-        draws are made on the CPU and moved, so a seed gives the same
-        weights on every device): normal x 1/sqrt(fan_in) for matrices,
-        normal x 0.02 for the embeddings, ones/zeros for norms and
-        biases."""
-        return ParamTree(flatten(self.init_tree(gen, device)))
+        """Fresh parameters from ``gen``, drawn on the generator's device
+        and moved to ``device`` (a CPU generator gives the same weights on
+        every device; a CUDA generator draws on the card, leaf by leaf):
+        normal x 1/sqrt(fan_in) for matrices, normal x 0.02 for the
+        embeddings, ones/zeros for norms and biases (zeros for the RMS
+        norm's ``1 + scale``)."""
+        return ParamTree(flatten(self._init_tree(gen, resolve_device(device))))
 
-    def train_loss(self, params, batch):
+    def _forward(self, params, tokens, cache_len: Optional[int] = None,
+                 use_decode_window: bool = False):
         cfg = self.cfg
         p = unflatten(as_params(params))
-        tokens = batch["tokens"]
         x = embed_tokens(p["io"], tokens, cfg)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        x = T.stack_apply_full(p["stack"], x, positions, cfg)
-        x = L.norm_apply(p["io"]["final_norm"], x)
-        w = p["io"]["embed"].T.to(cfg.compute_dtype)
-        ce = ce_loss(x, w, batch["targets"])
+        x, caches = T.stack_apply_full(p["stack"], x, positions, cfg,
+                                       cache_len, use_decode_window)
+        return p, L.norm_apply(p["io"]["final_norm"], x), caches
+
+    def train_loss(self, params, batch):
+        cfg = self.cfg
+        p, x, _ = self._forward(params, batch["tokens"])
+        w = unembed_matrix(p["io"], cfg).to(cfg.compute_dtype)
+        ce = ce_loss(x, w, batch["targets"], cfg.final_softcap)
         return ce, {"ce": ce, "aux": 0.0}
 
+    @torch.no_grad()
+    def prefill(self, params, batch, use_decode_window: bool = False,
+                max_new_tokens: int = 0):
+        """-> (logits of the last position (B, 1, V) fp32, decode caches
+        with room for ``max_new_tokens`` more tokens in global layers)."""
+        tokens = batch["tokens"]
+        p, x, caches = self._forward(params, tokens,
+                                     tokens.shape[1] + max_new_tokens,
+                                     use_decode_window)
+        return logits_fn(p["io"], x[:, -1:], self.cfg), caches
+
+    @torch.no_grad()
+    def decode_step(self, params, caches, tokens):
+        """tokens: (B, 1) -> (logits (B, 1, V) fp32, caches updated in
+        place)."""
+        cfg = self.cfg
+        p = unflatten(as_params(params))
+        x = embed_tokens(p["io"], tokens, cfg,
+                         positions=_decode_positions(caches))
+        x, caches = T.stack_apply_decode(p["stack"], x, caches, cfg)
+        x = L.norm_apply(p["io"]["final_norm"], x)
+        return logits_fn(p["io"], x, cfg), caches
+
+    def init_cache(self, batch_size: int, ctx_len: int, long: bool = False,
+                   device: DeviceLike = None):
+        return T.stack_cache_init(self.cfg, batch_size, ctx_len,
+                                  use_decode_window=long,
+                                  device=resolve_device(device))
+
     def param_count(self) -> Dict[str, int]:
-        tree = self.init_tree(torch.Generator().manual_seed(0), "cpu")
+        """Dense models: every parameter is active. Counted from shapes
+        on the meta device, so nothing is allocated."""
+        tree = self._init_tree(None, torch.device("meta"))
         total = sum(math.prod(t.shape) for t in flatten(tree).values())
         return {"total": total, "active": total}
 
