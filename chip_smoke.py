@@ -7,14 +7,21 @@ Phases, each printing JSON lines; any failure raises and exits non-zero
 before the final line:
 
 1. device: the card's name and power limit (nvidia-smi), the torch and
-   CUDA versions, and the time to build the wire kernels from
-   ``src/repro_torch/kernels/csrc`` (nvcc, at first use, into ``build/``).
+   CUDA versions, and the time to build the kernels from
+   ``src/repro_torch/kernels/csrc`` (nvcc, at first use, into ``build/``);
+   then ptxas's registers, spills and static shared memory per kernel.
 2. kernels: each wire kernel against its plain PyTorch version on the
    card, bit for bit, on every parameter-leaf shape of the full-width
    char-LM (delta-like values) and on edge cases; then its time per
-   client delta (the 16 leaf launches of one ``finalize_delta``) from
-   CUDA events, beside its plain version's, a one-call library
-   equivalent where one exists, and the least time the card could take.
+   client delta (one launch over the delta's 16 leaves staged into one
+   buffer of 7,428 blocks, as ``compress_decompress`` runs it) from CUDA
+   events, beside its plain version's, a one-call library equivalent
+   where one exists (timed in turns with the kernel, ``time_turns_ms``),
+   and the least time the card could take. Every
+   kernel line also carries ``host_us``: the wrapper's own host cost per
+   call, the host-clock time to issue ~1,000 calls in a row (20 at
+   Gemma2's shapes) divided by their number, the card synchronised
+   after the window and before it.
    The masked-sum fold likewise, at C in {1, 2, 6, 17} clients and
    n in {1, 511, 513, 1,900,800} columns (random and all-ones uint64),
    timed at one full-width round's fold (C = 6, n = 1,900,800) beside
@@ -27,7 +34,9 @@ before the final line:
    Gemma2 global and one local layer (B = 1, S = 8192) and at the
    char-LM eval's shape (B = 64, S = 32, H = 8, D = 24; and S = 128),
    beside its plain version, the bound and, for the char-LM shapes,
-   SDPA.
+   SDPA; at Gemma2's shapes SDPA without the softcap (another function,
+   so ``sdpa_no_softcap_ms``, never ``library_ms``) and the SM clock and
+   power draw (nvidia-smi) right after the timed window.
 3. rounds: the full-width ``charlm-shakespeare`` model through five
    CAFL-L client rounds on the card (policy -> ``train_client`` x 6 ->
    ``aggregate`` -> ``apply_delta`` -> usage -> ``dual_update`` ->
@@ -54,7 +63,9 @@ before the final line:
    model with the plain attention in its place; decode logits after the
    first and the last step against a prefill over the prompt plus the
    tokens so far; prefill s and tokens/s, decode ms per token, peak
-   memory, and the kernel's share of prefill device time. A reduction
+   memory, the kernel's share of prefill device time, and the SM clock
+   and power draw right after the timed prefill. All 42 flash launches
+   must take the tensor-core variant (``mma_bf16``). A reduction
    of the ``prefill_32k`` shape (B = 32, S = 32,768) in batch and
    length; widths unchanged.
 6. the ``{"kernels": [...]}`` summary, the nvidia-smi line, and the
@@ -160,6 +171,30 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def smi_clocks() -> dict:
+    """The card's SM clock (MHz) and power draw (W) now, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    clock, power = out.stdout.strip().splitlines()[0].split(",")
+    return {"clocks_sm_mhz": float(clock), "power_draw_w": float(power)}
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """The host's cost of one call of ``fn``: the host-clock time to issue
+    ``calls`` calls in a row, per call, with the card synchronised before
+    and after the window (the closing synchronize is not counted)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return issued / calls * 1e6
+
+
 def card_rates(name: str):
     """Data-sheet rates of the card ``name``; raises for a card without
     an entry, so no bound is computed from another card's peaks."""
@@ -185,6 +220,28 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_turns_ms(*fns, reps: int = 100, warmup: int = 3):
+    """Median CUDA-event time of each of ``fns``, timed in turns (each
+    round in the other order: a b, b a, ...) so that drift in the host's
+    state falls on all of them alike: a kernel against its library call."""
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for i in range(reps):
+        order = range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))
+        for j in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[j]()
+            end.record()
+            end.synchronize()
+            times[j].append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
 
 
 def delta_like(gen: torch.Generator, shape) -> torch.Tensor:
@@ -224,18 +281,15 @@ def max_gap(*pairs) -> float:
 # ---------------------------------------------------------------------------
 
 
-def leaf_blocks(leaves):
-    """Each leaf flattened and zero-padded to whole 256-value blocks, as
-    ``kernels.ops`` hands it to the kernels."""
-    from repro_torch.kernels.ops import _blocks
-    return [_blocks(x, BLOCK)[0] for x in leaves]
-
-
 def check_kernels(leaves, dev) -> dict:
     """Hold each kernel against its plain version on the card, on the
-    same inputs; returns each kernel's largest |kernel - plain| over all
-    its outputs and cases (codes, scales and mask included). Any bit of
-    difference fails the run."""
+    same inputs: each leaf's blocks, edge cases, and the whole delta
+    staged into one buffer as ``compress_decompress`` hands it to the
+    kernels (whose round trip must also equal the per-leaf plain one).
+    Returns each kernel's largest |kernel - plain| over all its outputs
+    and cases (codes, scales and mask included). Any bit of difference
+    fails the run."""
+    from repro_torch.core.compression import compress_decompress, stage_blocks
     from repro_torch.kernels import ops, quantize, ref, wire
     gen = torch.Generator().manual_seed(7)
     edge = [torch.zeros(()), torch.zeros((0,)), torch.zeros((512,)),
@@ -245,8 +299,9 @@ def check_kernels(leaves, dev) -> dict:
     cases = [x.to(dev) for x in edge] + list(leaves)
     worst = dict.fromkeys(("quantize_blocks", "dequantize_blocks",
                            "quantize_topk_blocks"), 0.0)
-    for x in cases:
-        blocks = leaf_blocks([x])[0]
+    staged = stage_blocks(list(leaves), BLOCK)[0]
+    for x in cases + [staged]:
+        blocks = stage_blocks([x], BLOCK)[0]
         for bits in (8, 2):
             c, s = quantize.quantize_blocks(blocks, bits)
             rc, rs = ref.quantize_blocks_ref(blocks, bits)
@@ -276,19 +331,30 @@ def check_kernels(leaves, dev) -> dict:
             y = ops.quantize_dequantize(x, bits=bits, topk=64)
             check(bits_equal(y, ref.quantize_dequantize_ref(x, bits, topk=64)),
                   f"ops.quantize_dequantize differs at {tuple(x.shape)}")
+    tree = {f"leaf{i}": x for i, x in enumerate(cases)}
+    for q, topk in ((1, None), (2, None), (2, 64)):
+        got = compress_decompress(tree, q, topk=topk)
+        for name, x in tree.items():
+            want = ref.quantize_dequantize_ref(x, 8 if q == 1 else 2,
+                                               topk=topk)
+            check(bits_equal(got[name], want),
+                  f"compress_decompress differs from the per-leaf plain "
+                  f"round trip at {tuple(x.shape)} q={q} topk={topk}")
     return worst
 
 
 def kernel_records(leaves, card_name: str):
-    """Time each kernel per client delta (the 16 leaf launches) beside its
+    """Time each kernel per client delta (one launch over the 16 leaves
+    staged into one buffer, as ``compress_decompress`` runs it) beside its
     plain version, the library call where one exists, and its bound."""
+    from repro_torch.core.compression import stage_blocks
     from repro_torch.kernels import quantize, ref, wire
     _, (bw, fp32_rate, _) = card_rates(card_name)
-    blocks = leaf_blocks(leaves)
-    n = sum(b.numel() for b in blocks)                # padded values
-    nb = sum(b.shape[0] for b in blocks)              # blocks
+    buf, _ = stage_blocks(leaves, BLOCK)
+    n = buf.numel()                                   # padded values
+    nb = buf.shape[0]                                 # blocks
     bits, k = 2, 64
-    coded = [quantize.quantize_blocks(b, bits) for b in blocks]
+    codes, scales = quantize.quantize_blocks(buf, bits)
 
     def bound(bytes_, ops):
         t_bytes, t_ops = bytes_ / bw * 1e3, ops / fp32_rate * 1e3
@@ -302,23 +368,29 @@ def kernel_records(leaves, card_name: str):
     recs.append({
         "name": "quantize_blocks",
         "replaces": "src/repro/kernels/quantize.py:47",
-        "ms": time_ms(lambda: [quantize.quantize_blocks(b, bits)
-                               for b in blocks]),
-        "plain_ms": time_ms(lambda: [ref.quantize_blocks_ref(b, bits)
-                                     for b in blocks]),
+        "ms": time_ms(lambda: quantize.quantize_blocks(buf, bits)),
+        "plain_ms": time_ms(lambda: ref.quantize_blocks_ref(buf, bits)),
+        "host_us": host_us(lambda: quantize.quantize_blocks(buf, bits)),
         "library_ms": None,
         "bound_ms": b_ms, "bound_by": b_by})
-    # dequantize: read codes + scales, write f32; one multiply per value
+    # dequantize: read codes + scales, write f32; one multiply per value.
+    # The main path decodes into the staged buffer (out=), so the library
+    # call writes into a given buffer too; the allocating call beside it
+    out = torch.empty_like(buf)
     b_ms, b_by = bound(n + nb * 4 + n * 4, n)
+    ms, library, library_alloc = time_turns_ms(
+        lambda: quantize.dequantize_blocks(codes, scales, out=out),
+        lambda: torch.mul(codes, scales[:, None], out=out),
+        lambda: torch.mul(codes, scales[:, None]))
     recs.append({
         "name": "dequantize_blocks",
         "replaces": "src/repro/kernels/quantize.py:65",
-        "ms": time_ms(lambda: [quantize.dequantize_blocks(c, s)
-                               for c, s in coded]),
-        "plain_ms": time_ms(lambda: [ref.dequantize_blocks_ref(c, s)
-                                     for c, s in coded]),
-        "library_ms": time_ms(lambda: [torch.mul(c, s[:, None])
-                                       for c, s in coded]),
+        "ms": ms,
+        "plain_ms": time_ms(lambda: ref.dequantize_blocks_ref(codes,
+                                                              scales)),
+        "host_us": host_us(lambda: quantize.dequantize_blocks(codes, scales,
+                                                              out=out)),
+        "library_ms": library, "library_alloc_ms": library_alloc,
         "bound_ms": b_ms, "bound_by": b_by})
     # top-k: read x, write codes + mask + scales. The function needs the
     # quantizer's ~6 ops per value plus a few to select k of a block (a
@@ -328,16 +400,18 @@ def kernel_records(leaves, card_name: str):
     recs.append({
         "name": "quantize_topk_blocks",
         "replaces": "src/repro/kernels/wire.py:84",
-        "ms": time_ms(lambda: [wire.quantize_topk_blocks(b, bits, k)
-                               for b in blocks]),
-        "plain_ms": time_ms(lambda: [ref.quantize_topk_blocks_ref(b, bits, k)
-                                     for b in blocks], reps=5, warmup=1),
+        "ms": time_ms(lambda: wire.quantize_topk_blocks(buf, bits, k)),
+        "plain_ms": time_ms(lambda: ref.quantize_topk_blocks_ref(buf, bits,
+                                                                 k),
+                            reps=5, warmup=1),
+        "host_us": host_us(lambda: wire.quantize_topk_blocks(buf, bits, k)),
         "library_ms": None,
         "bound_ms": b_ms, "bound_by": b_by})
     for r in recs:
         r.update(route="cuda", source=SOURCE)
-    return recs, {"values": n, "blocks": nb, "leaves": len(blocks),
-                  "bits": bits, "k": k, "bytes_per_s": bw,
+    return recs, {"values": n, "blocks": nb, "leaves": len(leaves),
+                  "launches_per_delta": 1, "bits": bits, "k": k,
+                  "bytes_per_s": bw,
                   "fp32_ops_per_s": fp32_rate}
 
 
@@ -388,12 +462,15 @@ def masked_sum_record(dev, card_name: str):
     stacked = torch.from_numpy(vals.view(np.int64)).to(dev)
     # read C*n uint64 as limbs, write n uint64
     bytes_ = 8 * c * n + 8 * n
+    ms, library = time_turns_ms(lambda: wire.masked_sum_limbs(hi, lo),
+                                lambda: torch.sum(stacked, dim=0))
     return {
         "name": "masked_sum_limbs", "route": "cuda", "source": SOURCE,
         "replaces": "src/repro/kernels/wire.py:130",
-        "ms": time_ms(lambda: wire.masked_sum_limbs(hi, lo)),
+        "ms": ms,
         "plain_ms": time_ms(lambda: ref.masked_sum_ref(hi, lo)),
-        "library_ms": time_ms(lambda: torch.sum(stacked, dim=0)),
+        "host_us": host_us(lambda: wire.masked_sum_limbs(hi, lo)),
+        "library_ms": library,
         "bound_ms": bytes_ / bw * 1e3, "bound_by": "bytes",
         "clients": c, "columns": n, "bytes_per_s": bw}
 
@@ -510,13 +587,48 @@ FLASH_TIMED = (
 )
 
 
+def flash_bound_ms(q, k, window, card_name: str):
+    """The least time the card could take for one causal flash call on
+    q (B,S,H,D), k (B,S,KVH,D): the larger of its bytes (q, k, v read
+    once, the output written once) over the memory rate and the
+    operations its unmasked pairs need (4 D each) over the rate of its
+    dtype (bf16 tensor cores, fp32 CUDA cores) -> (ms, details)."""
+    _, (bw, fp32_rate, bf16_rate) = card_rates(card_name)
+    b, s, h, d = q.shape
+    bytes_ = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    ops_ = 4 * b * h * d * flash_pairs(s, s, True, window)
+    rate = bf16_rate if q.dtype == torch.bfloat16 else fp32_rate
+    t_bytes, t_ops = bytes_ / bw * 1e3, ops_ / rate * 1e3
+    return max(t_bytes, t_ops), {
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": bytes_, "operations": ops_, "ops_per_s": rate}
+
+
+def sdpa_call(q, k, v, window):
+    """SDPA on (B,S,H,D) tensors, causal (and banded by ``window`` through
+    a boolean mask), without a softcap, as a function of no arguments."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = k.shape[2] != q.shape[2]
+    if window is None:
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=gqa)
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = ((pos[None, :] <= pos[:, None])
+            & (pos[None, :] > pos[:, None] - window))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
+
+
 def flash_records(dev, card_name: str):
     """Hold the flash kernel to its plain version at the main path's
     shapes (the sweep's bounds; fails outside them), and time it there
     beside the plain version, SDPA where it computes the same function
-    (no softcap, no window: the char-LM), and the bound."""
+    (no softcap, no window: the char-LM), and the bound; at Gemma2's
+    shapes also SDPA without the softcap (``sdpa_no_softcap_ms``: not the
+    same function) and the SM clock and power draw right after the
+    kernel's timed window."""
     from repro_torch.kernels import ops, ref
-    _, (bw, fp32_rate, bf16_rate) = card_rates(card_name)
+    from repro_torch.kernels.flash_attention import variant
     gen = torch.Generator(device=dev).manual_seed(22)
     recs = []
     for label, b, s, h, kvh, d, dtype, window, softcap in FLASH_TIMED:
@@ -529,35 +641,39 @@ def flash_records(dev, card_name: str):
               f"flash_attention_bhsd differs at the {label} shape: max "
               f"|gap| {gap}")
         del got, want
-        size = q.element_size()
-        bytes_ = size * (2 * q.numel() + k.numel() + v.numel())
-        ops_ = 4 * b * h * d * flash_pairs(s, s, True, window)
-        rate = bf16_rate if dtype == "bfloat16" else fp32_rate
-        t_bytes, t_ops = bytes_ / bw * 1e3, ops_ / rate * 1e3
-        library = None
-        if window is None and softcap is None:
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            library = time_ms(lambda: torch.nn.functional.
-                              scaled_dot_product_attention(
-                                  qt, kt, vt, is_causal=True,
-                                  enable_gqa=kvh != h))
         big = s >= 4096
-        recs.append({
+        kernel = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
+        library = None
+        if big:
+            ms = time_ms(kernel, reps=10)
+        elif window is None and softcap is None:
+            # the same function in one PyTorch call: timed in turns
+            ms, library = time_turns_ms(kernel, sdpa_call(q, k, v, None))
+        else:
+            ms = time_ms(kernel, reps=100)
+        rec = {
             "name": "flash_attention_bhsd", "route": "cuda",
             "source": FLASH_SOURCE,
             "replaces": "src/repro/kernels/flash_attention.py:90",
+            "variant": variant(q.dtype, d),
             "shape": label, "batch": b, "seq": s, "heads": h,
             "kv_heads": kvh, "head_dim": d, "dtype": dtype,
             "window": window, "softcap": softcap, "max_abs_err": gap,
-            "ms": time_ms(lambda: ops.flash_attention(q, k, v, **kw),
-                          reps=10 if big else 30),
-            "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v,
-                                                                **kw),
-                                reps=3 if big else 30, warmup=1),
-            "library_ms": library,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": bytes_, "operations": ops_, "ops_per_s": rate})
+            "ms": ms}
+        if big:
+            rec.update(smi_clocks())
+        rec["host_us"] = host_us(kernel, calls=20 if big else 1000)
+        rec["plain_ms"] = time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                                  **kw),
+                                  reps=3 if big else 30, warmup=1)
+        rec["library_ms"] = library
+        if big:
+            rec["sdpa_no_softcap_ms"] = time_ms(sdpa_call(q, k, v, window),
+                                                reps=10)
+        rec["bound_ms"], bound = flash_bound_ms(q, k, window, card_name)
+        rec.update(bound)
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        recs.append(rec)
     return recs
 
 
@@ -667,7 +783,9 @@ def drive_rounds(dev, cfg, fl, ds):
                   f"form {want_mb}")
             check(abs(r.params_active - n_active) <= 1e-6 * n_active,
                   f"round {t}: params_active {r.params_active} != {n_active}")
-        per_client = 16 * len(results)
+        # one launch of each wire kernel per client delta: its 16 leaves
+        # are staged into one buffer of blocks (compress_decompress)
+        per_client = len(results)
         if kn.q == 0:
             check(not any(launched.values()),
                   f"round {t}: wire kernels launched at q=0: {launched}")
@@ -890,6 +1008,8 @@ def prefill_device_split(prefill, params, batch) -> dict:
     against all device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import KERNELS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = prefill(params, batch)
@@ -898,7 +1018,7 @@ def prefill_device_split(prefill, params, batch) -> dict:
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             total += e.self_device_time_total
-            if "flash_attention_bhsd_kernel" in e.key:
+            if any(name in e.key for name in KERNELS.values()):
                 flash += e.self_device_time_total
     check(total > 0 and flash > 0,
           "the profiler saw no device time of the flash kernel in prefill")
@@ -911,7 +1031,7 @@ def drive_serving(dev, smi: str) -> int:
     8,192-token prompt and decode 16 greedy tokens through the serving
     steps; returns the flash launches of the timed prefill."""
     from repro_torch.configs import INPUT_SHAPES, get_config
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import cuda_lib, ops, ref
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import build
 
@@ -942,10 +1062,15 @@ def drive_serving(dev, smi: str) -> int:
     logits, caches = prefill(params, {"tokens": prompt})
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    clocks = smi_clocks()
     launches = dict(ops.LAUNCHES)
+    variants = dict(cuda_lib.FLASH_VARIANTS)
     check(launches["flash_attention_bhsd"] == cfg.num_layers,
           f"{launches['flash_attention_bhsd']} flash launches in one "
           f"prefill, expected {cfg.num_layers}")
+    check(variants["mma_bf16"] == cfg.num_layers,
+          f"prefill's flash launches by variant {variants}: expected all "
+          f"{cfg.num_layers} on the tensor cores (mma_bf16)")
     check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"prefill logits {tuple(logits.shape)} not finite or misshapen")
@@ -997,7 +1122,8 @@ def drive_serving(dev, smi: str) -> int:
           "prefill_tokens_per_s": SERVE_PROMPT / prefill_s,
           "decode_ms_per_token": statistics.median(step_ms),
           "decode_step_ms": step_ms, "peak_memory_bytes": peak,
-          "launches": launches, **split,
+          "launches": launches, "flash_variants": variants, **clocks,
+          **split,
           "phase_s": time.perf_counter() - phase_t0, "nvidia_smi": smi})
     return launches["flash_attention_bhsd"]
 
@@ -1042,6 +1168,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kernel_build_s": time.perf_counter() - t0,
           "library": os.path.relpath(cuda_lib.library_path(), ROOT)})
+    for row in cuda_lib.ptxas_report():
+        emit({"phase": "ptxas", **row})
 
     cfg, fl, ds, model, leaves = full_width(dev)
     emit({"phase": "model", "config": cfg.name, "params":

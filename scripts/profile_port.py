@@ -7,8 +7,9 @@ Prints JSON lines:
 
 - ``device``: the card's name and power limit (nvidia-smi).
 - ``kernel_device``: the device time of each wire kernel per client delta
-  of the full-width char-LM (the 16 leaf launches of one
-  ``finalize_delta``, bits 2, k 64), averaged over 20 deltas.
+  of the full-width char-LM (one launch over the delta's 16 leaves
+  staged into one buffer, as ``finalize_delta`` runs it; bits 2, k 64),
+  averaged over 20 deltas.
 - ``profile``: one client's LocalTrain at the given knobs (5 local
   steps): wall time per microbatch without the profiler, per step part
   (grad, masked AdamW, the wire round trip) with a synchronize around
@@ -22,7 +23,9 @@ Prints JSON lines:
   prefill, B = 1, S = 8192, bf16; the char-LM eval, B = 64, S = 32 and
   128, f32): its device time per launch under the profiler (5 launches
   at S = 8192, 20 otherwise) and, in the same process, the median
-  CUDA-event time of one call as ``chip_smoke.py`` takes it.
+  CUDA-event time of one call as ``chip_smoke.py`` takes it, the share
+  of the bound (``chip_smoke.flash_bound_ms``) in the device time, and
+  at S = 8192 the SM clock and power draw right after each window.
 - ``engine_round``: ``--engine-rounds`` CAFL-L rounds of
   ``FederatedEngine`` on the card with each aggregator ("sync", then
   "masked"), each round split at the engine's own callback hooks (with a
@@ -49,8 +52,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from chip_smoke import (FLASH_TIMED, SUM_TIMED, check, emit,  # noqa: E402
-                        flash_inputs, full_width, leaf_blocks,
-                        nvidia_smi_line, time_ms)
+                        flash_bound_ms, flash_inputs, full_width,
+                        nvidia_smi_line, smi_clocks, time_ms)
 
 
 def device_kernels(fn, reps: int = 1):
@@ -75,38 +78,47 @@ def device_kernels(fn, reps: int = 1):
     return wall / reps, out
 
 
-def kernel_device_us(fn, name: str, reps: int = 20, what: str = "") -> float:
-    """Device time of one of the kernels per call of ``fn``."""
+def kernel_device_us(fn, names, reps: int = 20, what: str = "") -> float:
+    """Device time per call of ``fn`` of the one kernel whose name holds
+    one of ``names`` (a kernel name or a tuple of them)."""
+    names = (names,) if isinstance(names, str) else tuple(names)
     _, kernels = device_kernels(fn, reps)
     us = [t for key, (_, t) in kernels.items()
-          if f"{name}_kernel" in key
-          and not (name == "quantize_blocks" and "dequantize" in key)]
-    check(len(us) == 1, f"profiler saw no single {name} kernel in "
+          if any(f"{name}_kernel" in key or name in key for name in names)
+          and not ("quantize_blocks" in names and "dequantize" in key)]
+    check(len(us) == 1, f"profiler saw no single {names} kernel in "
           f"{reps} calls {what}: {sorted(kernels)}")
     return us[0]
 
 
 def wire_kernel_device_us(leaves, bits: int = 2, k: int = 64) -> dict:
+    from repro_torch.core.compression import stage_blocks
     from repro_torch.kernels import quantize, wire
-    blocks = leaf_blocks(leaves)
-    coded = [quantize.quantize_blocks(b, bits) for b in blocks]
+    buf, _ = stage_blocks(leaves)
+    codes, scales = quantize.quantize_blocks(buf, bits)
+    out = torch.empty_like(buf)
     return {
         "quantize_blocks": kernel_device_us(
-            lambda: [quantize.quantize_blocks(b, bits) for b in blocks],
-            "quantize_blocks"),
+            lambda: quantize.quantize_blocks(buf, bits), "quantize_blocks"),
         "dequantize_blocks": kernel_device_us(
-            lambda: [quantize.dequantize_blocks(c, s) for c, s in coded],
+            lambda: quantize.dequantize_blocks(codes, scales, out=out),
             "dequantize_blocks"),
+        "dequantize_library_mul": kernel_device_us(
+            lambda: torch.mul(codes, scales[:, None], out=out),
+            ("mul", "elementwise")),
         "quantize_topk_blocks": kernel_device_us(
-            lambda: [wire.quantize_topk_blocks(b, bits, k) for b in blocks],
+            lambda: wire.quantize_topk_blocks(buf, bits, k),
             "quantize_topk_blocks"),
     }
 
 
 def flash_times(dev) -> dict:
     """The flash kernel at each timed shape: device us per launch under
-    the profiler, and the CUDA-event ms of one call, in one process."""
+    the profiler, and the CUDA-event ms of one call, in one process, with
+    the bound's share of the device time (and at S = 8192 the SM clock
+    and power draw right after each window)."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import KERNELS
     gen = torch.Generator(device=dev).manual_seed(22)
     out = {}
     for label, b, s, h, kvh, d, dtype, window, softcap in FLASH_TIMED:
@@ -117,10 +129,19 @@ def flash_times(dev) -> dict:
                                        softcap=softcap)
 
         big = s >= 4096
-        out[label] = {
-            "device_us": kernel_device_us(call, "flash_attention_bhsd",
-                                          reps=5 if big else 20, what=label),
-            "event_ms": time_ms(call, reps=10 if big else 30)}
+        row = {"device_us": kernel_device_us(call, KERNELS.values(),
+                                             reps=5 if big else 20,
+                                             what=label)}
+        if big:
+            row["device_clocks"] = smi_clocks()
+        row["event_ms"] = time_ms(call, reps=10 if big else 30)
+        if big:
+            row["event_clocks"] = smi_clocks()
+        bound_ms, _ = flash_bound_ms(q, k, window,
+                                     torch.cuda.get_device_name(0))
+        row["bound_ms"] = bound_ms
+        row["bound_share_of_device"] = bound_ms * 1e3 / row["device_us"]
+        out[label] = row
     return out
 
 

@@ -9,10 +9,15 @@ only the ``topk`` largest-magnitude codes per block ship, as (packed
 codes, 1-bit/coordinate keep-bitmask, per-block fp32 scale).
 
 A tree is one tensor or the port's parameter dict (names -> tensors).
-Each leaf is quantized on its own: its tail block is
-zero-padded within itself, so blocks never straddle two leaves.
-``kernels.ops`` runs the CUDA kernels for CUDA leaves and the plain
-versions for CPU leaves.
+Each leaf is quantized on its own blocks: its tail block is zero-padded
+within itself, so blocks never straddle two leaves. The round trip
+stages every leaf of the tree into one zeroed buffer of
+``sum(ceil(n_i / block))`` blocks, each leaf starting on a block
+boundary, and quantizes and decodes that buffer with one call each:
+one launch of each wire kernel per client delta on the card, where a
+call per leaf took 16. The results are the per-leaf path's, bit for bit,
+and ``wire_bytes`` prices the same blocks. ``kernels.ops`` runs the CUDA
+kernels for CUDA leaves and the plain versions for CPU leaves.
 """
 from __future__ import annotations
 
@@ -28,16 +33,49 @@ def _leaves(tree: Any) -> List[Any]:
     return list(tree.values()) if isinstance(tree, dict) else [tree]
 
 
+def stage_blocks(leaves: List[torch.Tensor], block: int = 256):
+    """Leaves -> (a zeroed (sum ceil(n_i / block), block) f32 buffer
+    holding each leaf's values from its own first block on, the offset
+    of each leaf's first value in the flattened buffer)."""
+    device = leaves[0].device if leaves else torch.device("cpu")
+    if any(leaf.device != device for leaf in leaves):
+        raise ValueError("stage_blocks: the leaves lie on more than "
+                         "one device")
+    offsets, dst, src = [], [], []
+    total = 0
+    for leaf in leaves:
+        n = leaf.numel()
+        offsets.append(total)
+        total += -(-n // block) * block
+    buf = torch.zeros((total // block, block), dtype=torch.float32,
+                      device=device)
+    flat = buf.view(-1)
+    for leaf, off in zip(leaves, offsets):
+        if leaf.numel():
+            dst.append(flat[off:off + leaf.numel()])
+            src.append(leaf.reshape(-1).to(torch.float32))
+    if dst:
+        torch._foreach_copy_(dst, src)
+    return buf, offsets
+
+
 def compress_decompress(tree: Any, q: int, block: int = 256,
                         topk: Optional[int] = None) -> Any:
     if q == 0:
         return tree
     bits = 8 if q == 1 else 2
+    leaves = [ops.as_tensor(leaf) for leaf in _leaves(tree)]
+    with torch.no_grad():
+        buf, offsets = stage_blocks(leaves, block)
+        codes, scales, _, _ = ops.quantize_wire(buf, bits=bits, block=block,
+                                                topk=topk)
+        # decoded in place: the staged values are spent once quantized
+        flat = ops.dequantize_blocks(codes, scales, out=buf).view(-1)
+    out = [flat[off:off + leaf.numel()].view(leaf.shape).to(leaf.dtype)
+           for leaf, off in zip(leaves, offsets)]
     if isinstance(tree, dict):
-        return {name: ops.quantize_dequantize(leaf, bits=bits, block=block,
-                                              topk=topk)
-                for name, leaf in tree.items()}
-    return ops.quantize_dequantize(tree, bits=bits, block=block, topk=topk)
+        return dict(zip(tree, out))
+    return out[0]
 
 
 #: dyadic scale-out factor: integer *bit* counts -> bytes; exact in

@@ -13,6 +13,8 @@
 //
 // What bounds them: all three functions are bound by bytes, with a
 // handful of operations per value (selecting k of a row needs no more).
+// The main path stages a client delta's leaves into one buffer of blocks
+// (core/compression.py), so each kernel runs once per delta.
 // The designs keep each pass to one read of the input: one CTA per row,
 // one thread per value, neighbouring threads on neighbouring addresses so
 // loads and stores coalesce, the row's scale loaded or reduced once per
@@ -77,9 +79,60 @@ __global__ void quantize_blocks_kernel(const float* __restrict__ x,
   if (i == 0) scales[row] = scale;
 }
 
-// Replaces repro/kernels/quantize.py::dequantize_blocks (_dequantize_kernel).
-// Same CTA shape as quantize_blocks_kernel: code * scale[row], with the
-// row's scale read once per CTA (code 0 -> exactly 0.0).
+// Replaces repro/kernels/quantize.py::dequantize_blocks (_dequantize_kernel):
+// code * scale[row] (code 0 -> exactly 0.0). The main path decodes a
+// whole client delta in one launch (every leaf's blocks staged into one
+// buffer), so the grid is sized to the buffer, not to a row: each thread
+// loads 16 codes of one row with one 16-byte load and reads the row's
+// scale once for them. The warp then trades words by shuffles so that
+// each of its four float4 stores covers 512 consecutive bytes.
+constexpr int kDequantThreads = 256;
+constexpr int kCodesPerThread = 16;
+
+__device__ __forceinline__ float4 decode4(uint32_t word, float scale) {
+  float x[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int8_t c = static_cast<int8_t>((word >> (8 * b)) & 0xffu);
+    x[b] = static_cast<float>(c) * scale;
+  }
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+__global__ void dequantize_blocks_vec16_kernel(
+    const int4* __restrict__ codes, const float* __restrict__ scales,
+    float4* __restrict__ out, int groups_per_row, int64_t n_groups) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kDequantThreads +
+                    threadIdx.x;  // this thread's 16 codes
+  const int lane = threadIdx.x % kWarp;
+  const int64_t first = i - lane;  // the warp's first group
+  int4 packed = make_int4(0, 0, 0, 0);
+  float scale = 0.0f;
+  if (i < n_groups) {
+    packed = codes[i];
+    scale = scales[i / groups_per_row];
+  }
+  // store w: lane l writes float4 (first * 4 + 32 w + l), the codes of
+  // word l % 4 of group first + 8 w + l / 4
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const int src = 8 * w + lane / 4;
+    const int x = __shfl_sync(0xffffffffu, packed.x, src);
+    const int y = __shfl_sync(0xffffffffu, packed.y, src);
+    const int z = __shfl_sync(0xffffffffu, packed.z, src);
+    const int v = __shfl_sync(0xffffffffu, packed.w, src);
+    const float sc = __shfl_sync(0xffffffffu, scale, src);
+    const int k = lane % 4;
+    const uint32_t word =
+        static_cast<uint32_t>(k == 0 ? x : (k == 1 ? y : (k == 2 ? z : v)));
+    if (first + src < n_groups) {
+      out[first * 4 + 32 * w + lane] = decode4(word, sc);
+    }
+  }
+}
+
+// Any block width (one CTA per row, one thread per value): the path for
+// rows that are not a multiple of 16 codes.
 __global__ void dequantize_blocks_kernel(const int8_t* __restrict__ codes,
                                          const float* __restrict__ scales,
                                          float* __restrict__ out, int block) {
@@ -174,10 +227,23 @@ int quantize_blocks_launch(const void* x, void* codes, void* scales,
 
 int dequantize_blocks_launch(const void* codes, const void* scales, void* out,
                              int n_blocks, int block, void* stream) {
-  dequantize_blocks_kernel<<<n_blocks, threads_for(block), 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(codes), static_cast<const float*>(scales),
-      static_cast<float*>(out), block);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = block % kCodesPerThread == 0 &&
+                   reinterpret_cast<uintptr_t>(codes) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    const int groups_per_row = block / kCodesPerThread;
+    const int64_t n_groups = static_cast<int64_t>(n_blocks) * groups_per_row;
+    const int64_t grid = (n_groups + kDequantThreads - 1) / kDequantThreads;
+    dequantize_blocks_vec16_kernel<<<static_cast<unsigned int>(grid),
+                                     kDequantThreads, 0, s>>>(
+        static_cast<const int4*>(codes), static_cast<const float*>(scales),
+        static_cast<float4*>(out), groups_per_row, n_groups);
+  } else {
+    dequantize_blocks_kernel<<<n_blocks, threads_for(block), 0, s>>>(
+        static_cast<const int8_t*>(codes), static_cast<const float*>(scales),
+        static_cast<float*>(out), block);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

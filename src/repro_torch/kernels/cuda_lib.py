@@ -10,18 +10,24 @@ machine without CUDA.
 
 ``LAUNCHES`` counts the launches of each kernel. Each kernel wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
-that it went through the kernels; ``reset_launches`` zeroes the counts.
+that it went through the kernels; ``FLASH_VARIANTS`` splits the flash
+kernel's count by variant; ``reset_launches`` zeroes the counts.
+
+``launch_on`` is the wrappers' one way in: it calls a C entry point on
+the current stream of the tensors' card, entering that card's context
+only when it is not the current one.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -32,13 +38,18 @@ SOURCES = tuple(os.path.join(_HERE, "csrc", name)
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_ROOT = os.path.join(_REPO_ROOT, "build", "repro_torch_kernels")
 #: no --use_fast_math: the kernels need div.rn.f32 and the accurate
-#: expf / tanhf (see the .cu headers)
+#: expf / tanhf (see the .cu headers). ``-Xptxas -v`` reports each
+#: kernel's registers, shared memory and spills: the build keeps the
+#: report beside the library (``ptxas_report``).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"quantize_blocks": 0, "dequantize_blocks": 0,
                             "quantize_topk_blocks": 0, "masked_sum_limbs": 0,
                             "flash_attention_bhsd": 0}
+#: the flash kernel's launches by variant (``flash_attention.VARIANTS``)
+FLASH_VARIANTS: Dict[str, int] = {"mma_bf16": 0, "rows_f32": 0,
+                                  "tiled_f32": 0}
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -56,20 +67,17 @@ _SIGNATURES = {
     # hi, lo, hi_out, lo_out, rows, n, stream
     "masked_sum_limbs_launch": [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _INT64,
                                 _VOIDP],
-    # q, k, v, o, dtype, batch, heads, kv_heads, sq, sk, d, strides[12],
-    # scale, causal, window, softcap, stream
-    "flash_attention_bhsd_launch": [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
-                                    _INT, _INT, _INT, _INT, _INT, _INT,
-                                    ctypes.POINTER(ctypes.c_longlong), _FLOAT,
-                                    _INT, _INT, _FLOAT, _VOIDP],
+    # the packed FlashArgs (flash_attention._ARGS), stream
+    "flash_attention_bhsd_launch": [ctypes.c_char_p, _VOIDP],
 }
 
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FLASH_VARIANTS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -94,11 +102,12 @@ def library_path() -> str:
                         "librepro_torch_kernels.so")
 
 
-def _run(cmd) -> None:
+def _run(cmd) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
                            f"\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
 
 
 def _build(out: str) -> None:
@@ -110,11 +119,49 @@ def _build(out: str) -> None:
         objs = [os.path.join(tmp, os.path.basename(src) + ".o")
                 for src in SOURCES]
         with ThreadPoolExecutor(len(SOURCES)) as pool:
-            list(pool.map(_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
-                                 for src, obj in zip(SOURCES, objs)]))
+            reports = list(pool.map(
+                _run, [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                       for src, obj in zip(SOURCES, objs)]))
         lib = os.path.join(tmp, "lib.so")
         _run([nvcc, "-shared", "-o", lib, *objs])
+        report = os.path.join(tmp, "ptxas.txt")
+        with open(report, "w") as f:
+            f.write("".join(reports))
+        os.replace(report, _report_path(out))
         os.replace(lib, out)
+
+
+def _report_path(lib: str) -> str:
+    return os.path.join(os.path.dirname(lib), "ptxas.txt")
+
+
+def ptxas_report() -> List[dict]:
+    """Each kernel's registers, spill bytes and static shared memory as
+    ptxas reported them when the library was built (``[]`` if it was
+    built elsewhere)."""
+    path = _report_path(library_path())
+    if not os.path.exists(path):
+        return []
+    rows, row = [], None
+    with open(path) as f:
+        for line in f:
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                row = {"kernel": entry.group(1)}
+                rows.append(row)
+            elif row is not None:
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", line)
+                used = re.search(r"Used (\d+) registers", line)
+                smem = re.search(r"(\d+) bytes smem", line)
+                if spill:
+                    row["spill_stores"] = int(spill.group(1))
+                    row["spill_loads"] = int(spill.group(2))
+                if used:
+                    row["registers"] = int(used.group(1))
+                if smem:
+                    row["static_smem"] = int(smem.group(1))
+    return rows
 
 
 def load_library() -> ctypes.CDLL:
@@ -159,5 +206,24 @@ def check_launch(err: int, name: str) -> None:
                            f"cudaError {err}")
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+#: the current stream's handle of a card, without building a Stream
+#: object (CUDA builds of torch have it; the fallback is the public call)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream(index: int) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def launch_on(index: int, name: str, *args) -> int:
+    """Call the C entry point ``name`` with ``args`` and the current
+    stream of card ``index``; returns its cudaError_t. (The card's tensors
+    exist, so CUDA is initialised and the current device can be read
+    directly.)"""
+    fn = getattr(load_library(), name)
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, current_stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, current_stream(index))

@@ -25,7 +25,9 @@ from repro_torch.kernels import wire as wk
 from repro_torch.kernels.cuda_lib import LAUNCHES, reset_launches  # noqa: F401
 
 
-def _as_tensor(x, device: DeviceLike) -> torch.Tensor:
+def as_tensor(x, device: DeviceLike = None) -> torch.Tensor:
+    """A tensor stays where it is (unless ``device`` is given); anything
+    else goes to ``device`` (``None`` -> the card)."""
     if isinstance(x, torch.Tensor) and device is None:
         return x
     return torch.as_tensor(x, device=resolve_device(device))
@@ -56,7 +58,7 @@ def quantize_dequantize(x, *, bits: int, block: int = 256,
     """Wire round trip (quantize then dequantize), any shape; ``topk``
     keeps the k largest-magnitude codes per block (dropped coordinates
     come back exactly 0.0)."""
-    x = _as_tensor(x, device)
+    x = as_tensor(x, device)
     if not _on_card(x):
         return ref.quantize_dequantize_ref(x, bits, block, topk=topk)
     shape, dtype = x.shape, x.dtype
@@ -71,14 +73,18 @@ def quantize_dequantize(x, *, bits: int, block: int = 256,
     return deq.reshape(-1)[:n].reshape(shape).to(dtype)
 
 
-def dequantize_blocks(codes, scales, *, device: DeviceLike = None):
+def dequantize_blocks(codes, scales, *, out: Optional[torch.Tensor] = None,
+                      device: DeviceLike = None):
     """Decode wire blocks: (n_blocks, block) int8 codes x per-block f32
-    scales -> (n_blocks, block) f32 (code 0 -> exactly 0.0)."""
-    codes = _as_tensor(codes, device)
-    scales = _as_tensor(scales, device)
+    scales -> (n_blocks, block) f32 (code 0 -> exactly 0.0), written into
+    ``out`` when given (an f32 tensor of the codes' shape)."""
+    codes = as_tensor(codes, device)
+    scales = as_tensor(scales, device)
     if not _on_card(codes):
-        return ref.dequantize_blocks_ref(codes, scales)
-    return qk.dequantize_blocks(codes.contiguous(), scales.contiguous())
+        deq = ref.dequantize_blocks_ref(codes, scales)
+        return deq if out is None else out.copy_(deq)
+    return qk.dequantize_blocks(codes.contiguous(), scales.contiguous(),
+                                out=out)
 
 
 def quantize_wire(x, *, bits: int, block: int = 256,
@@ -89,7 +95,7 @@ def quantize_wire(x, *, bits: int, block: int = 256,
     ``n_blocks = ceil(n / block)``, so ``core.compression.wire_bytes``
     prices this tuple. ``mask`` is None for the dense format and for
     ``topk >= block``."""
-    x = _as_tensor(x, device)
+    x = as_tensor(x, device)
     card = _on_card(x)
     if topk is not None and topk >= block:
         topk = None
@@ -144,8 +150,8 @@ def masked_sum(hi, lo, *, device: DeviceLike = None):
     (C, n) hi/lo -> ((n,) hi, (n,) lo) uint32. The card runs
     ``wire.masked_sum_limbs``; the CPU its plain version. Bit-exact
     either way (integer arithmetic)."""
-    hi = _as_tensor(hi, device)
-    lo = _as_tensor(lo, device)
+    hi = as_tensor(hi, device)
+    lo = as_tensor(lo, device)
     _check_cohort(hi.shape[0])
     if not _on_card(hi):
         return ref.masked_sum_ref(hi, lo)
@@ -179,15 +185,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Model layout: q (B,S,H,D), k/v (B,S,KVH,D) -> (B,S,H,D) in
-    ``q.dtype``. The card runs ``flash_attention_bhsd`` on (B,H,S,D)
-    views of these tensors, writing a (B,S,H,D) output; the CPU runs
+    ``q.dtype``. The card runs the flash kernel on these tensors through
+    their strides (``flash_attention_bshd``); the CPU runs
     ``ref.flash_attention_ref``. Forward only."""
     if not _on_card(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    fak.flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
-                             v.transpose(1, 2), causal=causal, window=window,
-                             softcap=softcap, scale=scale,
-                             out=out.transpose(1, 2))
-    return out
+    return fak.flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, scale=scale)

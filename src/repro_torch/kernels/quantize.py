@@ -10,6 +10,8 @@ the two by the tensor's device. Unlike the TPU kernels there is no
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import cuda_lib
@@ -35,41 +37,59 @@ def quantize_blocks(x2d: torch.Tensor, bits: int):
     check_bits(bits)
     n_blocks, block = x2d.shape
     check_block(block)
-    codes = torch.empty((n_blocks, block), dtype=torch.int8, device=x2d.device)
-    scales = torch.empty((n_blocks,), dtype=torch.float32, device=x2d.device)
+    codes = torch.empty_like(x2d, dtype=torch.int8)
+    scales = x2d.new_empty((n_blocks,))
     if n_blocks == 0:
         return codes, scales
-    lib = cuda_lib.load_library()
-    with torch.cuda.device(x2d.device):
-        err = lib.quantize_blocks_launch(
-            x2d.data_ptr(), codes.data_ptr(), scales.data_ptr(), n_blocks,
-            block, bits, inv_levels(bits), cuda_lib.stream_of(x2d))
+    err = cuda_lib.launch_on(
+        x2d.get_device(), "quantize_blocks_launch", x2d.data_ptr(),
+        codes.data_ptr(), scales.data_ptr(), n_blocks, block, bits,
+        inv_levels(bits))
     cuda_lib.check_launch(err, "quantize_blocks")
     cuda_lib.LAUNCHES["quantize_blocks"] += 1
     return codes, scales
 
 
-def dequantize_blocks(codes: torch.Tensor, scales: torch.Tensor):
-    """codes (n_blocks, block) int8, scales (n_blocks,) f32, both CUDA ->
-    (n_blocks, block) f32 (code 0 -> exactly 0.0)."""
+def _refuse_dequantize(codes, scales) -> None:
+    """Raise the fault of ``dequantize_blocks``'s inputs (the slow path
+    of its check)."""
     cuda_lib.check_cuda_tensor(codes, torch.int8, 2, "dequantize_blocks codes")
     cuda_lib.check_cuda_tensor(scales, torch.float32, 1,
                                "dequantize_blocks scales")
-    n_blocks, block = codes.shape
-    check_block(block)
-    if scales.shape[0] != n_blocks or scales.device != codes.device:
-        raise ValueError(f"scales {tuple(scales.shape)} on {scales.device} "
-                         f"do not match codes {tuple(codes.shape)} on "
-                         f"{codes.device}")
-    out = torch.empty((n_blocks, block), dtype=torch.float32,
-                      device=codes.device)
+    check_block(codes.shape[1])
+    raise ValueError(f"scales {tuple(scales.shape)} on {scales.device} "
+                     f"do not match codes {tuple(codes.shape)} on "
+                     f"{codes.device}")
+
+
+def dequantize_blocks(codes: torch.Tensor, scales: torch.Tensor,
+                      out: Optional[torch.Tensor] = None):
+    """codes (n_blocks, block) int8, scales (n_blocks,) f32, both CUDA ->
+    (n_blocks, block) f32 (code 0 -> exactly 0.0), written into ``out``
+    when given (contiguous f32 of the codes' shape on the same card). One
+    launch decodes any number of blocks: a whole client delta staged by
+    ``core.compression.compress_decompress``."""
+    index = codes.get_device()
+    shape = codes.shape
+    if (index < 0 or codes.dtype != torch.int8 or len(shape) != 2
+            or not codes.is_contiguous() or scales.get_device() != index
+            or scales.dtype != torch.float32 or scales.shape != shape[:1]
+            or not scales.is_contiguous() or not 0 < shape[1] <= MAX_BLOCK):
+        _refuse_dequantize(codes, scales)
+    if out is None:
+        out = torch.empty_like(codes, dtype=torch.float32)
+    elif (out.get_device() != index or out.dtype != torch.float32
+          or out.shape != shape or not out.is_contiguous()):
+        cuda_lib.check_cuda_tensor(out, torch.float32, 2,
+                                   "dequantize_blocks out")
+        raise ValueError(f"out {tuple(out.shape)} on {out.device} does "
+                         f"not match codes {tuple(shape)} on {codes.device}")
+    n_blocks, block = shape
     if n_blocks == 0:
         return out
-    lib = cuda_lib.load_library()
-    with torch.cuda.device(codes.device):
-        err = lib.dequantize_blocks_launch(
-            codes.data_ptr(), scales.data_ptr(), out.data_ptr(), n_blocks,
-            block, cuda_lib.stream_of(codes))
+    err = cuda_lib.launch_on(index, "dequantize_blocks_launch",
+                             codes.data_ptr(), scales.data_ptr(),
+                             out.data_ptr(), n_blocks, block)
     cuda_lib.check_launch(err, "dequantize_blocks")
     cuda_lib.LAUNCHES["dequantize_blocks"] += 1
     return out

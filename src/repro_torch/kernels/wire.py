@@ -41,12 +41,10 @@ def quantize_topk_blocks(x2d: torch.Tensor, bits: int, k: int):
     mask = torch.empty((n_blocks, block), dtype=torch.int8, device=x2d.device)
     if n_blocks == 0:
         return codes, scales, mask
-    lib = cuda_lib.load_library()
-    with torch.cuda.device(x2d.device):
-        err = lib.quantize_topk_blocks_launch(
-            x2d.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-            mask.data_ptr(), n_blocks, block, bits, inv_levels(bits), k,
-            cuda_lib.stream_of(x2d))
+    err = cuda_lib.launch_on(
+        x2d.get_device(), "quantize_topk_blocks_launch", x2d.data_ptr(),
+        codes.data_ptr(), scales.data_ptr(), mask.data_ptr(), n_blocks,
+        block, bits, inv_levels(bits), k)
     cuda_lib.check_launch(err, "quantize_topk_blocks")
     cuda_lib.LAUNCHES["quantize_topk_blocks"] += 1
     return codes, scales, mask
@@ -72,11 +70,9 @@ def masked_sum_limbs(hi: torch.Tensor, lo: torch.Tensor):
     lo_out = torch.empty((n,), dtype=hi.dtype, device=hi.device)
     if n == 0:
         return hi_out, lo_out
-    lib = cuda_lib.load_library()
-    with torch.cuda.device(hi.device):
-        err = lib.masked_sum_limbs_launch(
-            hi.data_ptr(), lo.data_ptr(), hi_out.data_ptr(), lo_out.data_ptr(),
-            rows, n, cuda_lib.stream_of(hi))
+    err = cuda_lib.launch_on(
+        hi.get_device(), "masked_sum_limbs_launch", hi.data_ptr(),
+        lo.data_ptr(), hi_out.data_ptr(), lo_out.data_ptr(), rows, n)
     cuda_lib.check_launch(err, "masked_sum_limbs")
     cuda_lib.LAUNCHES["masked_sum_limbs"] += 1
     return hi_out, lo_out

@@ -17,9 +17,17 @@ end, so a value near a rounding boundary may land on either neighbour;
 the f32 term covers outputs near zero, where heads of both signs cancel
 and the ulp is far below the fp32 sums' own error.
 
+Also on the CPU: a plain-torch emulation of the tensor-core variant's
+roundings (bf16 Q/K/V exact in fp32, fp32 scores, an online softmax over
+key tiles, P split into bf16 hi + lo for the PV product, one bf16
+rounding of the output) held to the twin within the bf16 bound, and one
+rounding of P shown to break it: the reason the kernel splits P.
+
 On a card (marked ``cuda``): the CUDA kernel against the twin on the
 same CUDA tensors, at the same tolerances, with S not a multiple of any
-tile, S = 1 and D not a multiple of 32.
+tile, S = 1 and D not a multiple of 32; the tensor-core variant at its
+tile edges; the f32 row variant at the char-LM eval's shapes; strided
+(non-contiguous) inputs; and the per-variant launch counts.
 """
 import numpy as np
 import pytest
@@ -29,6 +37,18 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import cuda_lib, ops, ref  # noqa: E402
 
 F32_ATOL = 2e-5
+
+
+def over_bound(got, want, dtype: str) -> int:
+    """How many values of ``got`` lie outside the bound around ``want``."""
+    got = torch.as_tensor(got).to(torch.float32)
+    want = torch.as_tensor(want).to(torch.float32)
+    gap = (got - want).abs()
+    if dtype == "bfloat16":
+        bound = bf16_ulp(torch.maximum(got.abs(), want.abs())) + F32_ATOL
+    else:
+        bound = torch.full_like(gap, F32_ATOL)
+    return int((gap > bound).sum())
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -160,6 +180,90 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core variant's roundings, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def emulate_mma_bf16(q, k, v, *, causal, window, softcap, split_p=True,
+                     block_k=32):
+    """The ``mma_bf16`` variant's arithmetic on the CPU: q (B,S,H,D),
+    k/v (B,S,KVH,D) in bf16 -> (B,S,H,D) bf16. Scores and sums in fp32
+    (the inputs and their products are exact in fp32); the online softmax
+    runs over key tiles of ``block_k`` with fp32 m, l and accumulator; P
+    enters the PV product as bf16 hi + lo (or one bf16 rounding); the
+    output is rounded to bf16 once."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qf = q.to(torch.float32).transpose(1, 2)                    # B,H,S,D
+    kf = k.to(torch.float32).repeat_interleave(h // kvh, 2).transpose(1, 2)
+    vf = v.to(torch.float32).repeat_interleave(h // kvh, 2).transpose(1, 2)
+    qpos = torch.arange(sq)[:, None]
+    m = torch.full((b, h, sq, 1), -1e30)
+    l_ = torch.zeros((b, h, sq, 1))
+    acc = torch.zeros((b, h, sq, d))
+    for k0 in range(0, sk, block_k):
+        kt, vt = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = (qf @ kt.transpose(-1, -2)) * (1.0 / np.sqrt(d))
+        if softcap is not None:
+            s = softcap * torch.tanh(s * np.float32(1.0 / softcap))
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        keep = torch.ones((sq, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            keep &= kpos <= qpos
+        if window is not None:
+            keep &= kpos > qpos - window
+        s = s.masked_fill(~keep, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(keep, torch.exp(s - m_new), torch.zeros(()))
+        l_ = l_ * corr + p.sum(-1, keepdim=True)
+        hi = _bf16(p)
+        pv = hi @ vt
+        if split_p:
+            pv = pv + _bf16(p - hi) @ vt
+        acc = acc * corr + pv
+        m = m_new
+    out = acc / torch.clamp(l_, min=1e-30)
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+EMULATED = [  # (s, h, kvh, d, causal, window, softcap)
+    (1, 2, 1, 24, True, None, 50.0),
+    (65, 4, 2, 24, True, 16, None),
+    (129, 2, 2, 128, True, None, 50.0),
+    (200, 4, 2, 128, False, 64, 50.0),
+    (256, 2, 1, 256, True, None, None),
+    (256, 2, 2, 256, True, 100, 50.0),
+]
+
+
+@pytest.mark.parametrize("case", EMULATED, ids=str)
+def test_split_p_emulation_within_bf16_bound(case):
+    s, h, kvh, d, causal, window, softcap = case
+    q, k, v = inputs(s * 5 + d, 1, s, h, kvh, d, "bfloat16")
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = emulate_mma_bf16(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert over_bound(got, want, "bfloat16") == 0
+
+
+def test_one_bf16_rounding_of_p_breaks_the_bound():
+    """P rounded once to bf16 (no lo part) puts outputs near zero outside
+    the bound: the split is needed, not a refinement."""
+    q, k, v = inputs(3, 1, 256, 2, 2, 128, "bfloat16")
+    kw = dict(causal=True, window=None, softcap=None)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert over_bound(emulate_mma_bf16(q, k, v, split_p=False, **kw), want,
+                      "bfloat16") > 0
+    assert over_bound(emulate_mma_bf16(q, k, v, **kw), want, "bfloat16") == 0
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel against the twin (on a card)
 # ---------------------------------------------------------------------------
 
@@ -196,3 +300,83 @@ class TestCudaFlash:
         assert got.dtype == q.dtype and got.shape == q.shape
         assert_close(got.cpu().float().numpy(), want.cpu().float().numpy(),
                      dtype)
+
+    @pytest.mark.parametrize("g", [1, 2])
+    @pytest.mark.parametrize("d", [24, 64, 96, 128, 256])
+    @pytest.mark.parametrize("s", [1, 15, 16, 63, 64, 65, 127, 129, 1000])
+    def test_mma_bf16_tile_edges(self, card, s, d, g):
+        """The tensor-core variant around its 16-row, 64-row and 32/64-key
+        tiles, for every mask option, at each padded head width (24 -> 32,
+        64, 96 -> 128, 128, 256)."""
+        q, k, v = (t.to(card) for t in inputs(s * 3 + d + g, 1, s, 2 * g, 2,
+                                              d, "bfloat16"))
+        for causal, window, softcap in self.OPTIONS:
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            before = dict(cuda_lib.FLASH_VARIANTS)
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert cuda_lib.FLASH_VARIANTS["mma_bf16"] == \
+                before["mma_bf16"] + 1
+            assert over_bound(got.cpu(), want.cpu(), "bfloat16") == 0, kw
+
+    @pytest.mark.parametrize("shape", [(64, 32, 8, 8, 24),
+                                       (64, 128, 8, 8, 24),
+                                       (3, 7, 4, 2, 24), (2, 33, 2, 1, 20),
+                                       (1, 1000, 2, 2, 32)], ids=str)
+    def test_rows_f32_at_eval_shapes(self, card, shape):
+        """The f32 row variant at the char-LM eval's shapes (B 64, S 32
+        and 128, H 8, D 24) and at ragged ones."""
+        b, s, h, kvh, d = shape
+        q, k, v = (t.to(card) for t in inputs(s + d, b, s, h, kvh, d,
+                                              "float32"))
+        for causal, window, softcap in self.OPTIONS:
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            before = cuda_lib.FLASH_VARIANTS["rows_f32"]
+            got = ops.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert cuda_lib.FLASH_VARIANTS["rows_f32"] == before + 1
+            assert over_bound(got.cpu(), want.cpu(), "float32") == 0, kw
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("d", [24, 20, 128])
+    def test_strided_inputs(self, card, dtype, d):
+        """q, k, v as slices of one fused projection (B, S, 3, H, D) and
+        the (B, H, S, D) entry on transposed views: strides the kernel
+        reads in place, and a head width that is not a multiple of 8
+        (bf16's element-wise staging path)."""
+        from repro_torch.kernels import flash_attention as fa
+        gen = torch.Generator().manual_seed(d)
+        fused = torch.randn((2, 77, 3, 4, d), generator=gen).to(
+            getattr(torch, dtype)).to(card)
+        q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+        assert not q.is_contiguous()
+        kw = dict(causal=True, window=32, softcap=50.0)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        got = ops.flash_attention(q, k, v, **kw)
+        got_bhsd = fa.flash_attention_bhsd(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            **kw).transpose(1, 2)
+        torch.cuda.synchronize()
+        for out in (got, got_bhsd):
+            assert out.dtype == q.dtype and out.shape == q.shape
+            assert over_bound(out.cpu(), want.cpu(), dtype) == 0
+
+    def test_variant_counts(self, card):
+        """One launch per call, counted in total and under the variant
+        the dtype and head width choose."""
+        from repro_torch.kernels import flash_attention as fa
+        cases = [("bfloat16", 24, "mma_bf16"), ("bfloat16", 256, "mma_bf16"),
+                 ("float32", 24, "rows_f32"), ("float32", 32, "rows_f32"),
+                 ("float32", 64, "tiled_f32"), ("float32", 256, "tiled_f32")]
+        for dtype, d, name in cases:
+            assert fa.variant(getattr(torch, dtype), d) == name
+            q, k, v = (t.to(card) for t in inputs(d, 1, 9, 2, 1, d, dtype))
+            before = dict(cuda_lib.FLASH_VARIANTS)
+            total = ops.LAUNCHES["flash_attention_bhsd"]
+            ops.flash_attention(q, k, v)
+            assert ops.LAUNCHES["flash_attention_bhsd"] == total + 1
+            after = dict(cuda_lib.FLASH_VARIANTS)
+            assert {n: after[n] - before[n] for n in after} == {
+                n: int(n == name) for n in after}

@@ -169,6 +169,86 @@ def test_quantize_wire_tuple_and_wire_bytes(n, q, topk, jax_backend, J):
     assert got == J.comp.wire_bytes(J.jnp.asarray(x), q=q, topk=topk)
 
 
+def charlm_leaf_shapes():
+    """The 16 parameter-leaf shapes of the full-width char-LM."""
+    from repro_torch.configs.charlm_shakespeare import CONFIG
+    from repro_torch.models import build
+    params = build(CONFIG).init(torch.Generator().manual_seed(0),
+                                "cpu").params()
+    return [tuple(t.shape) for t in params.values()]
+
+
+@pytest.mark.parametrize("q,topk", [(1, None), (2, None), (1, 64), (2, 64)])
+def test_compress_decompress_tree_matches_jax_per_leaf(q, topk, J):
+    """The staged round trip (one buffer of blocks for the whole tree)
+    equals the reference's per-leaf ``ops.quantize_dequantize`` bit for
+    bit: a scalar leaf, a leaf with a ragged tail, an empty leaf and the
+    full-width char-LM's 16 leaf shapes, each leaf on its own blocks."""
+    shapes = [(), (3, 129), (0,)] + charlm_leaf_shapes()
+    assert len(shapes) == 19
+    rng = np.random.default_rng(q * 10 + (topk or 0))
+    leaves = {f"l{i}": np.asarray(rng.normal(size=shape) * 1e-3,
+                                  dtype=np.float32)
+              for i, shape in enumerate(shapes)}
+    leaves["l1"].reshape(-1)[:256] = 0.0              # an all-zero block
+    bits = 8 if q == 1 else 2
+    got = compression.compress_decompress(
+        {name: torch.from_numpy(x) for name, x in leaves.items()}, q,
+        topk=topk)
+    assert list(got) == list(leaves)
+    for name, x in leaves.items():
+        if x.size:
+            want = J.ops.quantize_dequantize(J.jnp.asarray(x), bits=bits,
+                                             topk=topk)
+        else:
+            want = J.ref.quantize_dequantize_ref(J.jnp.asarray(x), bits,
+                                                 topk=topk)
+        assert got[name].shape == x.shape
+        bits_equal(got[name].numpy(), want)
+
+
+@pytest.mark.parametrize("topk", [None, 64])
+def test_compress_decompress_calls_each_wire_kernel_once(topk, monkeypatch):
+    """One tree, one quantizer call and one ``dequantize_blocks`` call
+    (counted on the plain versions the CPU takes), whatever its number of
+    leaves; each leaf comes back as its own slice of the decoded blocks,
+    equal to the per-leaf round trip."""
+    calls = dict.fromkeys(("quantize_blocks_ref", "quantize_topk_blocks_ref",
+                           "dequantize_blocks_ref"), 0)
+    for name in calls:
+        def counted(*args, _fn=getattr(ref, name), _name=name):
+            calls[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(ref, name, counted)
+    rng = np.random.default_rng(5)
+    tree = {f"w{i}": torch.from_numpy(
+        np.asarray(rng.normal(size=shape) * 1e-3, dtype=np.float32))
+        for i, shape in enumerate([(), (7,), (300,), (2, 256), (5, 3, 11)])}
+    got = compression.compress_decompress(tree, 2, topk=topk)
+    quantizer = ("quantize_blocks_ref" if topk is None
+                 else "quantize_topk_blocks_ref")
+    # (the plain top-k quantizer calls the plain dense one inside it)
+    assert calls[quantizer] == 1 and calls["dequantize_blocks_ref"] == 1
+    assert calls["quantize_topk_blocks_ref"] == (topk is not None)
+    for name, x in tree.items():
+        bits_equal(got[name].numpy(),
+                   ref.quantize_dequantize_ref(x, 2, topk=topk).numpy())
+
+
+def test_stage_blocks_layout():
+    """Each leaf starts on a block boundary and its tail pads with zeros
+    inside its own last block."""
+    leaves = [torch.ones(()), torch.full((300,), 2.0), torch.zeros((0,)),
+              torch.full((2, 128), 3.0)]
+    buf, offsets = compression.stage_blocks(leaves, BLOCK)
+    assert buf.shape == (1 + 2 + 0 + 1, BLOCK)
+    assert offsets == [0, 256, 768, 768]
+    flat = buf.view(-1)
+    assert flat[0] == 1.0 and not flat[1:256].any()
+    assert bool((flat[256:556] == 2.0).all()) and not flat[556:768].any()
+    assert bool((flat[768:] == 3.0).all())
+
+
 def test_cpu_tensors_never_touch_the_kernels(monkeypatch):
     """CPU tensors take the plain versions: the kernel loader is never
     called and no launch is counted."""
@@ -256,6 +336,44 @@ class TestCudaKernels:
             before["dequantize_blocks"] + 1
         bits_equal(y.cpu().numpy(),
                    ref.quantize_dequantize_ref(x, 2, topk=64).cpu().numpy())
+
+    @pytest.mark.parametrize("q,topk", [(1, None), (2, None), (2, 64)])
+    def test_compress_decompress_one_launch_per_tree(self, card, q, topk):
+        """The full-width char-LM's 16 leaves plus a scalar and a ragged
+        leaf on the card: one launch of the quantizer and one of
+        ``dequantize_blocks`` for the whole tree, each leaf bit-equal to
+        the per-leaf plain path."""
+        shapes = [(), (3, 129)] + charlm_leaf_shapes()
+        gen = torch.Generator().manual_seed(q)
+        tree = {f"l{i}": (torch.randn(shape, generator=gen) * 1e-3).to(card)
+                for i, shape in enumerate(shapes)}
+        bits = 8 if q == 1 else 2
+        quant = "quantize_blocks" if topk is None else "quantize_topk_blocks"
+        before = dict(ops.LAUNCHES)
+        got = compression.compress_decompress(tree, q, topk=topk)
+        torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        assert launched[quant] == 1 and launched["dequantize_blocks"] == 1
+        assert sum(launched.values()) == 2
+        for name, x in tree.items():
+            want = ref.quantize_dequantize_ref(x, bits, topk=topk)
+            assert got[name].is_cuda and got[name].shape == x.shape
+            bits_equal(got[name].cpu().numpy(), want.cpu().numpy())
+
+    @pytest.mark.parametrize("n_blocks", [1, 7, 7428, 40_000])
+    def test_dequantize_vec16_rows(self, card, n_blocks):
+        """The 16-codes-a-thread path over many rows, and a row width that
+        is not a multiple of 16 (the one-thread-per-value path)."""
+        from repro_torch.kernels import quantize
+        gen = torch.Generator().manual_seed(n_blocks)
+        for block in (BLOCK, 100):
+            codes = torch.randint(-127, 128, (n_blocks, block),
+                                  generator=gen, dtype=torch.int8).to(card)
+            scales = torch.rand((n_blocks,), generator=gen).to(card)
+            got = quantize.dequantize_blocks(codes, scales)
+            want = ref.dequantize_blocks_ref(codes, scales)
+            torch.cuda.synchronize()
+            bits_equal(got.cpu().numpy(), want.cpu().numpy())
 
     @pytest.mark.parametrize("n", [0, 1, 511, 513, 100_003])
     @pytest.mark.parametrize("c", [1, 2, 6, 17])
