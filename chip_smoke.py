@@ -22,11 +22,17 @@ before the final line:
    call, the host-clock time to issue ~1,000 calls in a row (20 at
    Gemma2's shapes) divided by their number, the card synchronised
    after the window and before it.
-   The masked-sum fold likewise, at C in {1, 2, 6, 17} clients and
-   n in {1, 511, 513, 1,900,800} columns (random and all-ones uint64),
-   timed at one full-width round's fold (C = 6, n = 1,900,800) beside
-   ``torch.sum`` over int64; and the host work of one masked round
-   (fixed point, pairwise masks, the fold's copies). The flash-attention
+   The quantizer also at block widths 128, 512 and 1,024 (its
+   warp-per-block kernel), 100 and 257 (its CTA-per-row kernel) and on
+   an input one value off a 16-byte boundary, bits 8 and 2, bit for bit.
+   The masked-sum fold likewise, both entries (the uint64 one of the main
+   path and the limb one of the TPU function's contract), at C in
+   {1, 2, 6, 17} clients and n in {1, 511, 513, 1,900,800} columns
+   (random and all-ones uint64), the uint64 entry also against
+   ``np.add.reduce`` and on a view one column off a 16-byte boundary;
+   both timed at one full-width round's fold (C = 6, n = 1,900,800) in
+   turns with ``torch.sum`` over int64; and the host work of one masked
+   round (fixed point, pairwise masks, the fold's copies). The flash-attention
    kernel against its plain version over f32 / bf16, D in {24, 128, 256},
    GQA groups {1, 2, 4}, causal or not, window {None, 64, 4096}, softcap
    {None, 50}, S in {1, 7, 128, 129, 1000, 8192} and B in {1, 2} (B = 1
@@ -68,8 +74,10 @@ before the final line:
    must take the tensor-core variant (``mma_bf16``). A reduction
    of the ``prefill_32k`` shape (B = 32, S = 32,768) in batch and
    length; widths unchanged.
-6. the ``{"kernels": [...]}`` summary, the nvidia-smi line, and the
-   final ``{"ok": true, ...}`` line.
+6. a ``kernel_off_path`` line for the limb entry of the masked sum (all
+   the summary's keys; no main path runs it, so its launches must be 0),
+   the ``{"kernels": [...]}`` summary of the main paths' kernels, the
+   nvidia-smi line, and the final ``{"ok": true, ...}`` line.
 
 Each path of phases 3, 4 and 5 (each engine run, the prefill) runs with
 the launch counters zeroed just before it and read just after, and
@@ -115,6 +123,11 @@ MASKED_VAL_ATOL = 2e-3
 SUM_COHORTS = (1, 2, 6, 17)
 SUM_WIDTHS = (1, 511, 513, 1_900_800)
 SUM_TIMED = (6, 1_900_800)
+#: the quantizer's other block widths: multiples of 128 take its
+#: warp-per-block kernel, the others its CTA-per-row kernel; rows not a
+#: multiple of the warp kernel's 8 blocks per CTA
+QUANT_WIDTHS = (128, 512, 1024, 100, 257)
+QUANT_ROWS = 1001
 #: per-card data-sheet rates (NVIDIA, dense, no sparsity): device-memory
 #: bytes/s, fp32 (non-tensor-core) operations/s and bf16 tensor-core
 #: operations/s
@@ -331,6 +344,22 @@ def check_kernels(leaves, dev) -> dict:
             y = ops.quantize_dequantize(x, bits=bits, topk=64)
             check(bits_equal(y, ref.quantize_dequantize_ref(x, bits, topk=64)),
                   f"ops.quantize_dequantize differs at {tuple(x.shape)}")
+    # the quantizer at other widths and one value off a 16-byte boundary
+    # (the CTA-per-row kernel at the main path's width)
+    flat = delta_like(gen, (QUANT_ROWS * BLOCK + 1,)).to(dev)
+    offset = flat[1:].view(QUANT_ROWS, BLOCK)
+    check(offset.data_ptr() % 16 != 0, "the offset input is aligned")
+    for x2d in [delta_like(gen, (QUANT_ROWS, w)).to(dev)
+                for w in QUANT_WIDTHS] + [offset]:
+        for bits in (8, 2):
+            c, s = quantize.quantize_blocks(x2d, bits)
+            rc, rs = ref.quantize_blocks_ref(x2d, bits)
+            torch.cuda.synchronize()
+            worst["quantize_blocks"] = max(worst["quantize_blocks"],
+                                           max_gap((c, rc), (s, rs)))
+            check(bits_equal(c, rc) and bits_equal(s, rs),
+                  f"quantize_blocks differs at block {x2d.shape[1]} (base "
+                  f"{x2d.data_ptr() % 16} bytes off 16) bits={bits}")
     tree = {f"leaf{i}": x for i, x in enumerate(cases)}
     for q, topk in ((1, None), (2, None), (2, 64)):
         got = compress_decompress(tree, q, topk=topk)
@@ -415,13 +444,28 @@ def kernel_records(leaves, card_name: str):
                   "fp32_ops_per_s": fp32_rate}
 
 
-def check_masked_sum(dev) -> float:
-    """``masked_sum_limbs`` against its plain version on the card, bit
-    for bit, on random and all-ones uint64 cohorts; returns the largest
-    |kernel - plain| over both limbs of every case."""
+def check_masked_sum(dev) -> dict:
+    """Both masked-sum entries against their plain versions on the card,
+    bit for bit, on random and all-ones uint64 cohorts: ``masked_sum_u64``
+    on the values' int64 bits (also against ``np.add.reduce``, and on a
+    view one column off a 16-byte boundary), ``masked_sum_limbs`` on their
+    uint32 limbs. Returns each entry's largest |kernel - plain|."""
     from repro_torch.kernels import ops, ref, wire
     rng = np.random.default_rng(11)
-    worst = 0.0
+    worst = {"masked_sum_u64": 0.0, "masked_sum_limbs": 0.0}
+
+    def check_u64(bits, vals, what):
+        got = wire.masked_sum_u64(bits)
+        want = ref.masked_sum_u64_ref(bits)
+        torch.cuda.synchronize()
+        worst["masked_sum_u64"] = max(worst["masked_sum_u64"],
+                                      max_gap((got, want)))
+        check(bits_equal(got, want), f"masked_sum_u64 differs from its "
+              f"plain version at {what}")
+        check(np.array_equal(got.cpu().numpy().view(np.uint64),
+                             np.add.reduce(vals, axis=0)),
+              f"masked_sum_u64 differs from np.add.reduce at {what}")
+
     for c in SUM_COHORTS:
         for n in SUM_WIDTHS:
             for fill in ("random", "ones"):
@@ -430,6 +474,8 @@ def check_masked_sum(dev) -> float:
                 else:
                     vals = rng.integers(0, 2 ** 64, size=(c, n),
                                         dtype=np.uint64)
+                check_u64(torch.from_numpy(vals.view(np.int64)).to(dev),
+                          vals, f"C={c} n={n} {fill}")
                 hi, lo = (torch.from_numpy(x).to(dev)
                           for x in ops.split_limbs(vals))
                 got = wire.masked_sum_limbs(hi, lo)
@@ -438,41 +484,67 @@ def check_masked_sum(dev) -> float:
                 gap = max_gap(*((g.view(torch.int32).long() & 0xFFFFFFFF,
                                  w.view(torch.int32).long() & 0xFFFFFFFF)
                                 for g, w in zip(got, want)))
-                worst = max(worst, gap)
+                worst["masked_sum_limbs"] = max(worst["masked_sum_limbs"],
+                                                gap)
                 check(all(bits_equal(g, w) for g, w in zip(got, want)),
                       f"masked_sum_limbs differs at C={c} n={n} {fill}")
                 if fill == "random" and n == SUM_WIDTHS[-1]:
                     # the host-level fold too, against NumPy's uint64 sum
                     check(np.array_equal(ops.masked_sum_u64(vals, device=dev),
                                          np.add.reduce(vals, axis=0)),
-                          f"masked_sum_u64 differs at C={c}")
+                          f"ops.masked_sum_u64 differs at C={c}")
+    # a view one column off a 16-byte boundary: the scalar kernel at the
+    # main path's shape
+    c, n = SUM_TIMED
+    vals = rng.integers(0, 2 ** 64, size=(c, n), dtype=np.uint64)
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(1, np.uint64), vals.reshape(-1)]).view(np.int64)).to(dev)
+    offset = flat[1:].view(c, n)
+    check(offset.data_ptr() % 16 == 8, "the offset view is aligned")
+    check_u64(offset, vals, f"C={c} n={n}, one column off 16 bytes")
     return worst
 
 
-def masked_sum_record(dev, card_name: str):
-    """Time one full-width round's fold (C = 6, n = 1,900,800) on the
-    card beside its plain version and ``torch.sum`` over int64."""
-    from repro_torch.kernels import ref, wire
+def masked_sum_records(dev, card_name: str):
+    """Time one full-width round's fold (C = 6, n = 1,900,800) on the card
+    through each entry, in turns with ``torch.sum`` over int64, beside
+    each entry's plain version: [the uint64 entry (the main path's), the
+    limb entry]."""
+    from repro_torch.kernels import ops, ref, wire
     _, (bw, _, _) = card_rates(card_name)
     c, n = SUM_TIMED
     vals = np.random.default_rng(12).integers(0, 2 ** 64, size=(c, n),
                                               dtype=np.uint64)
-    from repro_torch.kernels.ops import split_limbs
-    hi, lo = (torch.from_numpy(x).to(dev) for x in split_limbs(vals))
+    hi, lo = (torch.from_numpy(x).to(dev) for x in ops.split_limbs(vals))
     stacked = torch.from_numpy(vals.view(np.int64)).to(dev)
-    # read C*n uint64 as limbs, write n uint64
+    # read C*n uint64 (as values or as limbs), write n uint64
     bytes_ = 8 * c * n + 8 * n
-    ms, library = time_turns_ms(lambda: wire.masked_sum_limbs(hi, lo),
-                                lambda: torch.sum(stacked, dim=0))
-    return {
-        "name": "masked_sum_limbs", "route": "cuda", "source": SOURCE,
-        "replaces": "src/repro/kernels/wire.py:130",
-        "ms": ms,
-        "plain_ms": time_ms(lambda: ref.masked_sum_ref(hi, lo)),
-        "host_us": host_us(lambda: wire.masked_sum_limbs(hi, lo)),
-        "library_ms": library,
-        "bound_ms": bytes_ / bw * 1e3, "bound_by": "bytes",
-        "clients": c, "columns": n, "bytes_per_s": bw}
+    u64_ms, limbs_ms, library = time_turns_ms(
+        lambda: wire.masked_sum_u64(stacked),
+        lambda: wire.masked_sum_limbs(hi, lo),
+        lambda: torch.sum(stacked, dim=0))
+    # host cost from 100 calls, which stay inside the launch queue: 1,000
+    # calls of a 34 us kernel may outrun the card and wait on it
+    # (``host_us_1000_calls``, beside it)
+    common = {"route": "cuda", "source": SOURCE,
+              "replaces": "src/repro/kernels/wire.py:130",
+              "library_ms": library, "bound_ms": bytes_ / bw * 1e3,
+              "bound_by": "bytes", "clients": c, "columns": n,
+              "bytes_per_s": bw}
+    return [
+        {"name": "masked_sum_u64", "entry": "uint64 bits (the main path)",
+         "ms": u64_ms,
+         "plain_ms": time_ms(lambda: ref.masked_sum_u64_ref(stacked)),
+         "host_us": host_us(lambda: wire.masked_sum_u64(stacked), calls=100),
+         "host_us_1000_calls": host_us(lambda: wire.masked_sum_u64(stacked)),
+         **common},
+        {"name": "masked_sum_limbs", "entry": "(hi, lo) uint32 limbs",
+         "ms": limbs_ms,
+         "plain_ms": time_ms(lambda: ref.masked_sum_ref(hi, lo)),
+         "host_us": host_us(lambda: wire.masked_sum_limbs(hi, lo),
+                            calls=100),
+         "host_us_1000_calls": host_us(lambda: wire.masked_sum_limbs(hi, lo)),
+         **common}]
 
 
 def masked_round_host(dev, model) -> dict:
@@ -948,9 +1020,12 @@ def drive_masked(dev, default_cafl):
               f"the {aggregator} engine run launched no wire or flash "
               f"kernel: {counts}")
     with_reports = sum(1 for r in masked if r.participants)
-    check(launches["masked"]["masked_sum_limbs"] == with_reports,
+    check(launches["masked"]["masked_sum_u64"] == with_reports
+          and launches["masked"]["masked_sum_limbs"] == 0,
+          f"{launches['masked']['masked_sum_u64']} masked_sum_u64 and "
           f"{launches['masked']['masked_sum_limbs']} masked_sum_limbs "
-          f"launches for {with_reports} rounds with reporters")
+          f"launches for {with_reports} rounds with reporters (expected "
+          f"one uint64 fold each and no limbs)")
     for a, b in zip(sync, masked):
         check(a.participants == b.participants,
               f"round {a.round}: masked participants {b.participants} != "
@@ -1176,13 +1251,14 @@ def main() -> int:
           model.param_count()["total"], "leaves": len(leaves)})
 
     worst = check_kernels(leaves, dev)
-    worst["masked_sum_limbs"] = check_masked_sum(dev)
+    worst.update(check_masked_sum(dev))
     recs, sizes = kernel_records(leaves, name)
     for r in recs:
         emit({"phase": "kernel", **r, **sizes})
-    rec = masked_sum_record(dev, name)
-    emit({"phase": "kernel", **rec})
-    recs.append(rec)
+    u64_rec, limbs_rec = masked_sum_records(dev, name)
+    for rec in (u64_rec, limbs_rec):
+        emit({"phase": "kernel", **rec})
+    recs.append(u64_rec)
     emit(masked_round_host(dev, model))
     flash_check = check_flash(dev)
     emit(flash_check)
@@ -1213,16 +1289,24 @@ def main() -> int:
         shutil.rmtree(out_dir, ignore_errors=True)
     det_launches = drive_masked(dev, default_cafl)
     serve_launches = {"flash_attention_bhsd": drive_serving(dev, smi)}
-    for r in recs:
+    for r in recs + [limbs_rec]:
         r["launches"] = (launches[r["name"]] + train_launches[r["name"]]
                          + det_launches[r["name"]]
                          + serve_launches.get(r["name"], 0))
+        r["max_abs_err"] = worst[r["name"]]
+    for r in recs:
         check(r["launches"] > 0,
               f"{r['name']} was not launched on the main path")
-        r["max_abs_err"] = worst[r["name"]]
+    # the limb entry serves the TPU function's contract (ops.masked_sum);
+    # the main path's fold goes through the uint64 entry alone
+    check(limbs_rec["launches"] == 0,
+          f"the main path launched masked_sum_limbs "
+          f"{limbs_rec['launches']} times")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"phase": "kernel_off_path", **{k: limbs_rec[k] for k in keys},
+          "host_us": limbs_rec["host_us"], "entry": limbs_rec["entry"]})
     emit({"kernels": [{k: r[k] for k in keys} for r in recs]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

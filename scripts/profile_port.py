@@ -15,9 +15,12 @@ Prints JSON lines:
   (grad, masked AdamW, the wire round trip) with a synchronize around
   each, and the device's busy share and top kernels under the profiler.
 - ``masked_fold``: one full-width round's masked-sum fold (6 clients x
-  1,900,800 uint64): ``masked_sum_limbs``'s device time under the
-  profiler, and ``ops.masked_sum_u64``'s host-clock time split into its
-  steps (split limbs, copy to the card, kernel, copy back, merge).
+  1,900,800 uint64): the device time under the profiler of the uint64
+  entry (``masked_sum_u64``, the main path's) and of the limb entry
+  (``masked_sum_limbs``) beside ``torch.sum`` over int64's, and
+  ``ops.masked_sum_u64``'s host-clock time,
+  whole and split into its steps (copy the values' bits to the card,
+  kernel, copy the sums back).
 - ``flash``: the flash-attention kernel at the main path's shapes
   (``chip_smoke.FLASH_TIMED``: one Gemma2 global and one local layer in
   prefill, B = 1, S = 8192, bf16; the char-LM eval, B = 64, S = 32 and
@@ -151,15 +154,20 @@ def synced() -> float:
 
 
 def masked_fold(dev) -> dict:
-    """One full-width round's fold: the kernel's device time and the
+    """One full-width round's fold: both entries' device time and the
     host-clock steps of ``ops.masked_sum_u64``."""
     from repro_torch.kernels import ops, wire
     c, n = SUM_TIMED
     vals = np.random.default_rng(12).integers(0, 2 ** 64, size=(c, n),
                                               dtype=np.uint64)
+    stacked = torch.from_numpy(vals.view(np.int64)).to(dev)
     hi, lo = (torch.from_numpy(x).to(dev) for x in ops.split_limbs(vals))
-    device_us = kernel_device_us(lambda: wire.masked_sum_limbs(hi, lo),
-                                 "masked_sum_limbs")
+    device_us = kernel_device_us(lambda: wire.masked_sum_u64(stacked),
+                                 "masked_sum_u64")
+    limbs_device_us = kernel_device_us(lambda: wire.masked_sum_limbs(hi, lo),
+                                       "masked_sum_limbs")
+    library_device_us = kernel_device_us(lambda: torch.sum(stacked, dim=0),
+                                         "reduce_kernel")
     ops.masked_sum_u64(vals, device=dev)                     # warm up
     steps = {}
 
@@ -169,17 +177,19 @@ def masked_fold(dev) -> dict:
         steps[name] = synced() - t0
         return out
 
-    hi_np, lo_np = step("split_s", lambda: ops.split_limbs(vals))
-    hi_t, lo_t = step("to_card_s", lambda: (torch.from_numpy(hi_np).to(dev),
-                                            torch.from_numpy(lo_np).to(dev)))
-    h, l_ = step("kernel_s", lambda: wire.masked_sum_limbs(hi_t, lo_t))
-    h_np, l_np = step("to_host_s", lambda: (h.cpu().numpy(), l_.cpu().numpy()))
-    total = step("merge_s", lambda: ops.merge_limbs(h_np, l_np))
+    bits = step("to_card_s",
+                lambda: torch.from_numpy(vals.view(np.int64)).to(dev))
+    total = step("kernel_s", lambda: wire.masked_sum_u64(bits))
+    total = step("to_host_s", lambda: total.cpu().numpy().view(np.uint64))
     again = step("masked_sum_u64_s",
                  lambda: ops.masked_sum_u64(vals, device=dev))
-    check(np.array_equal(total, again), "masked fold steps disagree")
+    check(np.array_equal(total, again)
+          and np.array_equal(again, np.add.reduce(vals, axis=0)),
+          "masked fold steps disagree")
     return {"phase": "masked_fold", "clients": c, "columns": n,
-            "kernel_device_us": device_us, **steps}
+            "kernel_device_us": device_us,
+            "limbs_kernel_device_us": limbs_device_us,
+            "library_sum_device_us": library_device_us, **steps}
 
 
 def engine_rounds(dev, rounds: int) -> list:

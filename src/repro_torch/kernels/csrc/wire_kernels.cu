@@ -1,6 +1,6 @@
 // Wire kernels of the CAFL-L round for Hopper (sm_90a).
 //
-// Four kernels, each behind a plain C entry point that launches it on the
+// Each kernel sits behind a plain C entry point that launches it on the
 // caller's stream and returns cudaGetLastError(); the Python wrappers in
 // repro_torch/kernels/{quantize,wire}.py load this file's shared library
 // with ctypes, allocate every output, and raise on a non-zero return.
@@ -15,19 +15,22 @@
 // handful of operations per value (selecting k of a row needs no more).
 // The main path stages a client delta's leaves into one buffer of blocks
 // (core/compression.py), so each kernel runs once per delta.
-// The designs keep each pass to one read of the input: one CTA per row,
-// one thread per value, neighbouring threads on neighbouring addresses so
-// loads and stores coalesce, the row's scale loaded or reduced once per
-// row (warp shuffles and shared memory, never a second pass over device
-// memory) and no per-value index arithmetic beyond row * block + i. The
-// top-k rank of this design reads the row from shared memory, never from
-// device memory again, but it costs `block` compares per value, so this
-// kernel sits far above the function's byte bound (a radix select would
-// cut that).
+// The designs keep each pass to one read of the input, with the row's
+// scale reduced or loaded once per row (never a second pass over device
+// memory). quantize_blocks gives each block of a multiple of 128 values
+// to one warp: float4 loads, an absmax of five warp shuffles (no shared
+// memory, no barrier), codes stored four to a 32-bit word, eight blocks
+// to a CTA; other widths and unaligned inputs take one CTA per row, one
+// thread per value. The top-k kernel keeps the CTA per row: its rank
+// reads the row from shared memory, never from device memory again, but
+// it costs `block` compares per value, so it sits far above the
+// function's byte bound (a radix select would cut that).
 //
-// The masked-sum fold (masked_sum_limbs_kernel) is integer arithmetic,
-// exact by construction, and bound by bytes too: each limb is read once
-// and each sum written once.
+// The masked-sum fold is integer arithmetic, exact by construction, and
+// bound by bytes too: each value is read once and each sum written once.
+// masked_sum_u64 reads the cohort as the uint64 values it is (Hopper adds
+// 64-bit integers natively); masked_sum_limbs takes the TPU's (hi, lo)
+// uint32 limbs of the same values.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,8 +65,10 @@ __device__ __forceinline__ int8_t quantize_value(float x, float scale,
   return static_cast<int8_t>(static_cast<int>(q));
 }
 
-// Replaces repro/kernels/quantize.py::quantize_blocks (_quantize_kernel).
-// grid = n_blocks CTAs, blockDim = block rounded up to a warp.
+// Replaces repro/kernels/quantize.py::quantize_blocks (_quantize_kernel)
+// at any block width and alignment: grid = n_blocks CTAs, blockDim =
+// block rounded up to a warp. The main path's widths take the warp
+// kernel below.
 __global__ void quantize_blocks_kernel(const float* __restrict__ x,
                                        int8_t* __restrict__ codes,
                                        float* __restrict__ scales, int block,
@@ -78,6 +83,78 @@ __global__ void quantize_blocks_kernel(const float* __restrict__ x,
   if (live) codes[row * block + i] = quantize_value(v, scale, qmax);
   if (i == 0) scales[row] = scale;
 }
+
+// Replaces repro/kernels/quantize.py::quantize_blocks for blocks of a
+// multiple of 128 values (the main path's 256): one warp per block, kVec
+// float4 per lane (block = 128 * kVec). Lane l loads float4 l + 32 j of
+// its row, so each warp-wide load covers 512 consecutive bytes; the
+// absmax is five xor shuffles; each lane packs its float4's four codes
+// into one 32-bit word, so each warp-wide store covers 128 consecutive
+// bytes. A row's early exit is uniform over its warp, so the shuffles
+// always see all 32 lanes.
+constexpr int kQuantWarps = 8;   // blocks per CTA
+
+__device__ __forceinline__ uint32_t quantize4(float4 v, float scale,
+                                              float qmax) {
+  const uint32_t b0 = static_cast<uint8_t>(quantize_value(v.x, scale, qmax));
+  const uint32_t b1 = static_cast<uint8_t>(quantize_value(v.y, scale, qmax));
+  const uint32_t b2 = static_cast<uint8_t>(quantize_value(v.z, scale, qmax));
+  const uint32_t b3 = static_cast<uint8_t>(quantize_value(v.w, scale, qmax));
+  return b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
+}
+
+__device__ __forceinline__ float absmax4(float4 v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(kQuantWarps * kWarp)
+quantize_blocks_warp_kernel(const float4* __restrict__ x,
+                            uint32_t* __restrict__ codes,
+                            float* __restrict__ scales, int n_blocks,
+                            float qmax, float inv) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kQuantWarps +
+                      threadIdx.x / kWarp;
+  if (row >= n_blocks) return;
+  const float4* xr = x + row * (kWarp * kVec);
+  float4 v[kVec];
+  float a = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    v[j] = xr[lane + kWarp * j];
+    a = fmaxf(a, absmax4(v[j]));
+  }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+  }
+  const float scale = a * inv;
+  uint32_t* cr = codes + row * (kWarp * kVec);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    cr[lane + kWarp * j] = quantize4(v[j], scale, qmax);
+  }
+  if (lane == 0) scales[row] = scale;
+}
+
+template <int kVec>
+void launch_quantize_warp(const void* x, void* codes, void* scales,
+                          int n_blocks, float qmax, float inv,
+                          cudaStream_t s) {
+  const int grid = (n_blocks + kQuantWarps - 1) / kQuantWarps;
+  quantize_blocks_warp_kernel<kVec><<<grid, kQuantWarps * kWarp, 0, s>>>(
+      static_cast<const float4*>(x), static_cast<uint32_t*>(codes),
+      static_cast<float*>(scales), n_blocks, qmax, inv);
+}
+
+// the warp kernel's launcher by float4s per lane (block / 128 - 1)
+using QuantizeWarpFn = void (*)(const void*, void*, void*, int, float, float,
+                                cudaStream_t);
+constexpr QuantizeWarpFn kQuantizeWarp[kMaxBlock / 128] = {
+    launch_quantize_warp<1>, launch_quantize_warp<2>, launch_quantize_warp<3>,
+    launch_quantize_warp<4>, launch_quantize_warp<5>, launch_quantize_warp<6>,
+    launch_quantize_warp<7>, launch_quantize_warp<8>};
 
 // Replaces repro/kernels/quantize.py::dequantize_blocks (_dequantize_kernel):
 // code * scale[row] (code 0 -> exactly 0.0). The main path decodes a
@@ -204,6 +281,55 @@ __global__ void masked_sum_limbs_kernel(const uint32_t* __restrict__ hi,
   lo_out[j] = static_cast<uint32_t>(acc);
 }
 
+// Replaces repro/kernels/wire.py::masked_sum_limbs on the uint64 values
+// themselves (the TPU carried them as limbs only for want of 64-bit
+// adds). vals: (rows, n) uint64, row-major; out: (n,) sums mod 2^64.
+// The vec2 kernel gives each thread two adjacent columns, one 16-byte
+// load per row (512 consecutive bytes per warp and row). It issues the
+// loads of up to kSumRowsAhead rows before their adds, so a cohort of 6
+// has all six loads in flight at once (a runtime-count loop unrolled by
+// the compiler would leave 6 < 8 rows to its one-at-a-time remainder).
+// Every value is read once and every sum written once, so loads and the
+// store are marked streaming (evict first) and leave L2 to others.
+// It needs every row start on 16 bytes (an even n, aligned bases); the
+// scalar kernel, one column a thread, takes an odd n or an unaligned
+// base.
+constexpr int kSumRowsAhead = 8;
+
+__global__ void masked_sum_u64_vec2_kernel(const ulonglong2* __restrict__ vals,
+                                           ulonglong2* __restrict__ out,
+                                           int rows, int64_t pairs) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (j >= pairs) return;
+  unsigned long long a = 0, b = 0;
+  for (int r0 = 0; r0 < rows; r0 += kSumRowsAhead) {
+    ulonglong2 v[kSumRowsAhead];
+#pragma unroll
+    for (int i = 0; i < kSumRowsAhead; ++i) {
+      v[i] = r0 + i < rows ? __ldcs(vals + (r0 + i) * pairs + j)
+                           : make_ulonglong2(0, 0);
+    }
+#pragma unroll
+    for (int i = 0; i < kSumRowsAhead; ++i) {
+      a += v[i].x;
+      b += v[i].y;
+    }
+  }
+  __stcs(out + j, make_ulonglong2(a, b));
+}
+
+__global__ void masked_sum_u64_scalar_kernel(
+    const unsigned long long* __restrict__ vals,
+    unsigned long long* __restrict__ out, int rows, int64_t n) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (j >= n) return;
+  unsigned long long acc = 0;
+  for (int r = 0; r < rows; ++r) acc += vals[r * n + j];
+  out[j] = acc;
+}
+
 constexpr int kSumThreads = 256;
 
 inline int threads_for(int block) {
@@ -218,10 +344,17 @@ int quantize_blocks_launch(const void* x, void* codes, void* scales,
                            int n_blocks, int block, int bits, float inv,
                            void* stream) {
   const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
-  quantize_blocks_kernel<<<n_blocks, threads_for(block), 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(codes),
-      static_cast<float*>(scales), block, qmax, inv);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool warp = block % 128 == 0 && block <= kMaxBlock &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(codes) % 4 == 0;
+  if (warp) {
+    kQuantizeWarp[block / 128 - 1](x, codes, scales, n_blocks, qmax, inv, s);
+  } else {
+    quantize_blocks_kernel<<<n_blocks, threads_for(block), 0, s>>>(
+        static_cast<const float*>(x), static_cast<int8_t*>(codes),
+        static_cast<float*>(scales), block, qmax, inv);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -266,6 +399,29 @@ int masked_sum_limbs_launch(const void* hi, const void* lo, void* hi_out,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
       static_cast<uint32_t*>(hi_out), static_cast<uint32_t*>(lo_out), rows, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int masked_sum_u64_launch(const void* vals, void* out, int rows, int64_t n,
+                          void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = n % 2 == 0 &&
+                   reinterpret_cast<uintptr_t>(vals) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    const int64_t pairs = n / 2;
+    const int64_t grid = (pairs + kSumThreads - 1) / kSumThreads;
+    masked_sum_u64_vec2_kernel<<<static_cast<unsigned int>(grid),
+                                 kSumThreads, 0, s>>>(
+        static_cast<const ulonglong2*>(vals), static_cast<ulonglong2*>(out),
+        rows, pairs);
+  } else {
+    const int64_t grid = (n + kSumThreads - 1) / kSumThreads;
+    masked_sum_u64_scalar_kernel<<<static_cast<unsigned int>(grid),
+                                   kSumThreads, 0, s>>>(
+        static_cast<const unsigned long long*>(vals),
+        static_cast<unsigned long long*>(out), rows, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

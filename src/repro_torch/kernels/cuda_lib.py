@@ -46,7 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 LAUNCHES: Dict[str, int] = {"quantize_blocks": 0, "dequantize_blocks": 0,
                             "quantize_topk_blocks": 0, "masked_sum_limbs": 0,
-                            "flash_attention_bhsd": 0}
+                            "masked_sum_u64": 0, "flash_attention_bhsd": 0}
 #: the flash kernel's launches by variant (``flash_attention.VARIANTS``)
 FLASH_VARIANTS: Dict[str, int] = {"mma_bf16": 0, "rows_f32": 0,
                                   "tiled_f32": 0}
@@ -67,6 +67,8 @@ _SIGNATURES = {
     # hi, lo, hi_out, lo_out, rows, n, stream
     "masked_sum_limbs_launch": [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _INT64,
                                 _VOIDP],
+    # vals, out, rows, n, stream
+    "masked_sum_u64_launch": [_VOIDP, _VOIDP, _INT, _INT64, _VOIDP],
     # the packed FlashArgs (flash_attention._ARGS), stream
     "flash_attention_bhsd_launch": [ctypes.c_char_p, _VOIDP],
 }

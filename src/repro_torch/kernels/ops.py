@@ -162,17 +162,20 @@ def masked_sum_u64(vals: np.ndarray, *, device: DeviceLike = None
                    ) -> np.ndarray:
     """Host-level cohort fold: NumPy (C, n) uint64 -> (n,) sum mod 2^64.
 
-    The ``MaskedSumAggregator`` flush path: the limbs are split on the
-    host, copied to ``device`` (``None`` -> ``"cuda"``), summed there and
-    merged back. There is no CPU shortcut on a card: asked for the card,
-    it launches the kernel or raises."""
+    The ``MaskedSumAggregator`` flush path: the values' bits go to
+    ``device`` (``None`` -> ``"cuda"``) as one int64 tensor, are summed
+    there in uint64 (``wire.masked_sum_u64``; its plain version on the
+    CPU) and come back as uint64. No limbs are split or merged. There is
+    no CPU shortcut on a card: asked for the card, it launches the
+    kernel or raises."""
     vals = np.ascontiguousarray(vals, dtype=np.uint64)
     _check_cohort(vals.shape[0])
-    dev = resolve_device(device)
-    hi, lo = split_limbs(vals)
-    hi_s, lo_s = masked_sum(torch.from_numpy(hi).to(dev),
-                            torch.from_numpy(lo).to(dev))
-    return merge_limbs(hi_s.cpu().numpy(), lo_s.cpu().numpy())
+    bits = torch.from_numpy(vals.view(np.int64)).to(resolve_device(device))
+    if _on_card(bits):
+        total = wk.masked_sum_u64(bits)
+    else:
+        total = ref.masked_sum_u64_ref(bits)
+    return total.cpu().numpy().view(np.uint64)
 
 
 # ---------------------------------------------------------------------------

@@ -31,20 +31,38 @@ def check_bits(bits: int) -> None:
         raise ValueError(f"bits must be 8 or 2, got {bits}")
 
 
-def quantize_blocks(x2d: torch.Tensor, bits: int):
-    """x2d: (n_blocks, block) f32 CUDA -> (codes int8, scales f32)."""
+#: the kernels' fp32 1/(L-1) by bits (``ref.inv_levels``), computed once
+_INV = {bits: inv_levels(bits) for bits in (2, 8)}
+
+
+def _refuse_quantize(x2d, bits) -> None:
+    """Raise the fault of ``quantize_blocks``'s inputs (the slow path of
+    its check)."""
     cuda_lib.check_cuda_tensor(x2d, torch.float32, 2, "quantize_blocks x2d")
     check_bits(bits)
-    n_blocks, block = x2d.shape
-    check_block(block)
+    check_block(x2d.shape[1])
+    raise ValueError(f"quantize_blocks: bits {bits} and x2d "
+                     f"{tuple(x2d.shape)} on {x2d.device}")
+
+
+def quantize_blocks(x2d: torch.Tensor, bits: int):
+    """x2d: (n_blocks, block) f32 CUDA -> (codes int8, scales f32). Rows
+    of a multiple of 128 values on a 16-byte aligned base take the
+    warp-per-block kernel, any other the CTA-per-row one."""
+    index = x2d.get_device()
+    shape = x2d.shape
+    if (index < 0 or x2d.dtype != torch.float32 or len(shape) != 2
+            or not x2d.is_contiguous() or not 0 < shape[1] <= MAX_BLOCK
+            or bits not in _INV):
+        _refuse_quantize(x2d, bits)
+    n_blocks, block = shape
     codes = torch.empty_like(x2d, dtype=torch.int8)
-    scales = x2d.new_empty((n_blocks,))
+    scales = x2d.new_empty(n_blocks)
     if n_blocks == 0:
         return codes, scales
-    err = cuda_lib.launch_on(
-        x2d.get_device(), "quantize_blocks_launch", x2d.data_ptr(),
-        codes.data_ptr(), scales.data_ptr(), n_blocks, block, bits,
-        inv_levels(bits))
+    err = cuda_lib.launch_on(index, "quantize_blocks_launch", x2d.data_ptr(),
+                             codes.data_ptr(), scales.data_ptr(), n_blocks,
+                             block, bits, _INV[bits])
     cuda_lib.check_launch(err, "quantize_blocks")
     cuda_lib.LAUNCHES["quantize_blocks"] += 1
     return codes, scales

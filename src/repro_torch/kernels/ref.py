@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels (the correctness reference).
 
-The masked-sum version (``masked_sum_ref``) is integer arithmetic and
-exact by construction; the flash-attention version
+The masked-sum versions (``masked_sum_ref`` on limbs,
+``masked_sum_u64_ref`` on uint64 bits) are integer arithmetic and exact
+by construction; the flash-attention version
 (``flash_attention_ref``) is the naive O(S^2) fp32 oracle of
 ``repro.kernels.ref.flash_attention_ref``, held to the kernel within a
 stated tolerance. The quantizers' notes follow.
@@ -127,17 +128,10 @@ def _u32(x: torch.Tensor) -> torch.Tensor:
         torch.uint32)
 
 
-def masked_sum_ref(hi: torch.Tensor, lo: torch.Tensor):
-    """(C, n) uint32 limb pairs -> ((n,), (n,)) uint32, the cohort's sum
-    mod 2^64: the reference's radix-2^16 digit sums and ripple carry,
-    carried in int64 and masked back to 32 bits at the boundary."""
-    if hi.shape != lo.shape or hi.ndim != 2:
-        raise ValueError(f"limbs must be two (C, n) tensors of one shape, "
-                         f"got {tuple(hi.shape)} and {tuple(lo.shape)}")
-    if hi.shape[0] > MASKED_SUM_MAX_CLIENTS:
-        raise ValueError(f"at most {MASKED_SUM_MAX_CLIENTS} clients per "
-                         f"fold, got {hi.shape[0]}")
-    h, l_ = _limbs_i64(hi), _limbs_i64(lo)
+def _fold_digits(h: torch.Tensor, l_: torch.Tensor):
+    """(C, n) int64 limbs in [0, 2^32) -> ((n,), (n,)) int64 in [0, 2^32),
+    the limbs of the column sums mod 2^64: the reference's radix-2^16
+    digit sums (each below C * 2^16, exact in int64) and ripple carry."""
     s0 = torch.sum(l_ & _MASK16, dim=0)
     s1 = torch.sum(l_ >> 16, dim=0)
     s2 = torch.sum(h & _MASK16, dim=0)
@@ -149,7 +143,40 @@ def masked_sum_ref(hi: torch.Tensor, lo: torch.Tensor):
     d2 = t2 & _MASK16
     t3 = s3 + (t2 >> 16)          # carry past bit 64 drops: mod 2^64
     d3 = t3 & _MASK16
-    return _u32(d2 | (d3 << 16)), _u32(d0 | (d1 << 16))
+    return d2 | (d3 << 16), d0 | (d1 << 16)
+
+
+def _check_clients(c: int) -> None:
+    if c > MASKED_SUM_MAX_CLIENTS:
+        raise ValueError(f"at most {MASKED_SUM_MAX_CLIENTS} clients per "
+                         f"fold, got {c}")
+
+
+def masked_sum_ref(hi: torch.Tensor, lo: torch.Tensor):
+    """(C, n) uint32 limb pairs -> ((n,), (n,)) uint32, the cohort's sum
+    mod 2^64: the reference's radix-2^16 digit sums and ripple carry,
+    carried in int64 and masked back to 32 bits at the boundary."""
+    if hi.shape != lo.shape or hi.ndim != 2:
+        raise ValueError(f"limbs must be two (C, n) tensors of one shape, "
+                         f"got {tuple(hi.shape)} and {tuple(lo.shape)}")
+    _check_clients(hi.shape[0])
+    h32, l32 = _fold_digits(_limbs_i64(hi), _limbs_i64(lo))
+    return _u32(h32), _u32(l32)
+
+
+def masked_sum_u64_ref(vals: torch.Tensor) -> torch.Tensor:
+    """(C, n) int64 holding the bits of uint64 values -> (n,) int64 holding
+    the bits of their column sums mod 2^64. Exact with no int64 overflow
+    anywhere: the values are split into 32-bit limbs (``>> 32`` and
+    ``& 0xFFFFFFFF`` of the bit pattern), folded as ``masked_sum_ref``
+    folds them, and merged as signed(hi) * 2^32 + lo, which lies in
+    int64's range."""
+    if vals.dtype != torch.int64 or vals.ndim != 2:
+        raise ValueError(f"vals must be a (C, n) int64 tensor, got "
+                         f"{vals.dtype} {tuple(vals.shape)}")
+    _check_clients(vals.shape[0])
+    h32, l32 = _fold_digits((vals >> 32) & _MASK32, vals & _MASK32)
+    return torch.where(h32 >= 2 ** 31, h32 - 2 ** 32, h32) * 2 ** 32 + l32
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,11 +10,14 @@ int8)``. Dropped coordinates get code 0, so ``quantize.dequantize_blocks``
 serves the sparse format too. CUDA tensors only; ``kernels/ops.py``
 dispatches CPU tensors to ``ref.quantize_topk_blocks_ref``.
 
-``masked_sum_limbs`` sums a cohort's (C, n) uint64 values, carried as
-(hi, lo) uint32 limbs, mod 2^64 (``MaskedSumAggregator``'s fold). Hopper
-adds 64-bit integers natively, so the kernel adds in uint64 where the TPU
-kernel needed radix-2^16 digits; ``ops.masked_sum`` dispatches CPU
-tensors to ``ref.masked_sum_ref`` and keeps the cohort-size guard.
+``masked_sum_u64`` sums a cohort's (C, n) uint64 values mod 2^64 (the
+fold of ``MaskedSumAggregator``, through ``ops.masked_sum_u64``): the
+values travel as the int64 tensor of their bits and are added in uint64
+on the card, where the TPU kernel needed (hi, lo) uint32 limbs and
+radix-2^16 digits. ``masked_sum_limbs`` takes those limbs, for callers
+of the TPU function's contract (``ops.masked_sum``); it adds in uint64
+too. ``ops`` dispatches CPU tensors to the plain versions in ``ref`` and
+keeps the cohort-size guard.
 """
 from __future__ import annotations
 
@@ -53,26 +56,69 @@ def quantize_topk_blocks(x2d: torch.Tensor, bits: int, k: int):
 _LIMB_DTYPES = (torch.uint32, torch.int32)
 
 
-def masked_sum_limbs(hi: torch.Tensor, lo: torch.Tensor):
-    """(C, n) uint32 limbs on the card (or int32 views of them) ->
-    ((n,), (n,)) limbs of the column sums mod 2^64, in the inputs' dtype."""
+def _refuse_limbs(hi, lo) -> None:
+    """Raise the fault of ``masked_sum_limbs``'s inputs (the slow path of
+    its check)."""
     for t, what in ((hi, "hi"), (lo, "lo")):
         if t.dtype not in _LIMB_DTYPES:
             raise ValueError(f"masked_sum_limbs {what}: expected uint32 or "
                              f"int32, got {t.dtype}")
         cuda_lib.check_cuda_tensor(t, t.dtype, 2, f"masked_sum_limbs {what}")
-    if hi.shape != lo.shape or hi.dtype != lo.dtype or hi.device != lo.device:
-        raise ValueError(f"masked_sum_limbs: hi {tuple(hi.shape)} {hi.dtype} "
-                         f"on {hi.device} does not match lo {tuple(lo.shape)} "
-                         f"{lo.dtype} on {lo.device}")
+    raise ValueError(f"masked_sum_limbs: hi {tuple(hi.shape)} {hi.dtype} "
+                     f"on {hi.device} does not match lo {tuple(lo.shape)} "
+                     f"{lo.dtype} on {lo.device}")
+
+
+def masked_sum_limbs(hi: torch.Tensor, lo: torch.Tensor):
+    """(C, n) uint32 limbs on the card (or int32 views of them) ->
+    ((n,), (n,)) limbs of the column sums mod 2^64, in the inputs' dtype."""
+    index = hi.get_device()
+    if (index < 0 or hi.dtype not in _LIMB_DTYPES or hi.dim() != 2
+            or not hi.is_contiguous() or lo.get_device() != index
+            or lo.dtype != hi.dtype or lo.shape != hi.shape
+            or not lo.is_contiguous()):
+        _refuse_limbs(hi, lo)
     rows, n = hi.shape
-    hi_out = torch.empty((n,), dtype=hi.dtype, device=hi.device)
-    lo_out = torch.empty((n,), dtype=hi.dtype, device=hi.device)
+    hi_out = hi.new_empty(n)
+    lo_out = hi.new_empty(n)
     if n == 0:
         return hi_out, lo_out
-    err = cuda_lib.launch_on(
-        hi.get_device(), "masked_sum_limbs_launch", hi.data_ptr(),
-        lo.data_ptr(), hi_out.data_ptr(), lo_out.data_ptr(), rows, n)
+    err = cuda_lib.launch_on(index, "masked_sum_limbs_launch", hi.data_ptr(),
+                             lo.data_ptr(), hi_out.data_ptr(),
+                             lo_out.data_ptr(), rows, n)
     cuda_lib.check_launch(err, "masked_sum_limbs")
     cuda_lib.LAUNCHES["masked_sum_limbs"] += 1
     return hi_out, lo_out
+
+
+def _refuse_u64(vals) -> None:
+    """Raise the fault of ``masked_sum_u64``'s input (the slow path of its
+    check): the type, then the layout, then the device."""
+    if vals.dtype != torch.int64:
+        raise ValueError(f"masked_sum_u64 vals: expected torch.int64 (the "
+                         f"bits of uint64 values), got {vals.dtype}")
+    if vals.dim() != 2:
+        raise ValueError(f"masked_sum_u64 vals: expected (C, n), got shape "
+                         f"{tuple(vals.shape)}")
+    if not vals.is_contiguous():
+        raise ValueError("masked_sum_u64 vals: expected a contiguous tensor")
+    raise ValueError(f"masked_sum_u64 vals: expected a CUDA tensor, got "
+                     f"{vals.device}")
+
+
+def masked_sum_u64(vals: torch.Tensor) -> torch.Tensor:
+    """(C, n) int64 on the card, the bits of uint64 values -> (n,) int64,
+    the bits of their column sums mod 2^64."""
+    index = vals.get_device()
+    if (index < 0 or vals.dtype != torch.int64 or vals.dim() != 2
+            or not vals.is_contiguous()):
+        _refuse_u64(vals)
+    rows, n = vals.shape
+    out = vals.new_empty(n)
+    if n == 0:
+        return out
+    err = cuda_lib.launch_on(index, "masked_sum_u64_launch", vals.data_ptr(),
+                             out.data_ptr(), rows, n)
+    cuda_lib.check_launch(err, "masked_sum_u64")
+    cuda_lib.LAUNCHES["masked_sum_u64"] += 1
+    return out

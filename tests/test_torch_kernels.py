@@ -89,6 +89,30 @@ def test_quantize_dequantize_blocks_twins(bits, J):
     bits_equal(deq.numpy(), J.deq(pc, ps, interpret=True))
 
 
+#: block widths beside the main path's 256: multiples of 128 (the card's
+#: warp-per-block kernel) and others (its CTA-per-row kernel)
+WIDTHS = [128, 512, 1024, 100, 257]
+
+
+@pytest.mark.parametrize("bits", [8, 2])
+@pytest.mark.parametrize("block", WIDTHS)
+def test_quantize_blocks_twin_at_other_widths(block, bits, J):
+    """13 rows, zero-padded to the reference's ROWS_PER_TILE (16) for the
+    Pallas call and compared on the first 13."""
+    from repro.kernels.quantize import ROWS_PER_TILE
+    x = delta_like(np.random.default_rng(block + bits), 13, block)
+    padded = np.zeros((-(-13 // ROWS_PER_TILE) * ROWS_PER_TILE, block),
+                      np.float32)
+    padded[:13] = x
+    codes, scales = ref.quantize_blocks_ref(torch.from_numpy(x), bits)
+    jc, js = J.ref.quantize_blocks_ref(J.jnp.asarray(x), bits)
+    pc, ps = J.quant(J.jnp.asarray(padded), bits, interpret=True)
+    for want_c, want_s in ((jc, js), (np.asarray(pc)[:13],
+                                      np.asarray(ps)[:13])):
+        bits_equal(codes.numpy(), want_c)
+        bits_equal(scales.numpy(), want_s)
+
+
 @pytest.mark.parametrize("bits", [8, 2])
 @pytest.mark.parametrize("k", [1, 32, 64, 255])
 def test_quantize_topk_blocks_twin(bits, k, J):
@@ -264,6 +288,10 @@ def test_cpu_tensors_never_touch_the_kernels(monkeypatch):
     c, s, _, _ = ops.quantize_wire(x, bits=2)
     ops.dequantize_blocks(c, s)
     compression.compress_decompress({"w": x}, 2, topk=64)
+    vals = np.random.default_rng(3).integers(0, 2 ** 64, size=(6, 513),
+                                             dtype=np.uint64)
+    ops.masked_sum_u64(vals, device="cpu")
+    ops.masked_sum(*ops.split_limbs(vals), device="cpu")
     assert ops.LAUNCHES == before
 
 
@@ -280,6 +308,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     limbs = torch.zeros((2, 3), dtype=torch.uint32)
     with pytest.raises(ValueError, match="CUDA"):
         wire.masked_sum_limbs(limbs, limbs)
+    with pytest.raises(ValueError, match="CUDA"):
+        wire.masked_sum_u64(torch.zeros((2, 3), dtype=torch.int64))
+    with pytest.raises(ValueError, match="int64"):
+        wire.masked_sum_u64(torch.zeros((2, 3), dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        wire.masked_sum_u64(torch.zeros((3, 2), dtype=torch.int64).t())
 
 
 # ---------------------------------------------------------------------------
@@ -374,6 +408,73 @@ class TestCudaKernels:
             want = ref.dequantize_blocks_ref(codes, scales)
             torch.cuda.synchronize()
             bits_equal(got.cpu().numpy(), want.cpu().numpy())
+
+    @pytest.mark.parametrize("block", [100, 128, 256, 257, 512, 1024])
+    @pytest.mark.parametrize("bits", [8, 2])
+    def test_quantize_blocks_widths(self, card, block, bits):
+        """Both quantizer kernels against the plain version: the warp
+        kernel (multiples of 128 on an aligned base, 1,001 rows so the
+        last CTA is ragged), the CTA-per-row kernel (other widths, and the
+        same rows one value off a 16-byte boundary)."""
+        from repro_torch.kernels import quantize
+        x = delta_like(np.random.default_rng(block), 1001, block)
+        flat = torch.from_numpy(np.concatenate([[0.5], x.reshape(-1)])
+                                .astype(np.float32)).to(card)
+        aligned = flat[1:].clone().view(1001, block)
+        offset = flat[1:].view(1001, block)          # 4 bytes off
+        assert offset.data_ptr() % 16 == 4 and offset.is_contiguous()
+        for x_t in (aligned, offset):
+            before = ops.LAUNCHES["quantize_blocks"]
+            codes, scales = quantize.quantize_blocks(x_t, bits)
+            want_c, want_s = ref.quantize_blocks_ref(x_t, bits)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["quantize_blocks"] == before + 1
+            bits_equal(codes.cpu().numpy(), want_c.cpu().numpy())
+            bits_equal(scales.cpu().numpy(), want_s.cpu().numpy())
+
+    @pytest.mark.parametrize("n", [0, 1, 511, 513, 100_003, 100_004])
+    @pytest.mark.parametrize("c", [1, 2, 6, 17])
+    def test_masked_sum_u64(self, card, c, n):
+        """The uint64 fold against its plain version and NumPy on the card,
+        bit for bit: random values with an all-ones row and column, on an
+        aligned base (the two-columns-a-thread kernel for an even n) and
+        on a view one column off it (the scalar kernel)."""
+        from repro_torch.kernels import wire
+        vals = np.random.default_rng(c * 11 + n).integers(
+            0, 2 ** 64, size=(c, n), dtype=np.uint64)
+        if n:
+            vals[0, :] = np.uint64(2 ** 64 - 1)
+            vals[:, 0] = np.uint64(2 ** 64 - 1)
+        want = np.add.reduce(vals, axis=0)
+        flat = torch.from_numpy(np.concatenate(
+            [np.array([7], np.uint64), vals.reshape(-1)]).view(np.int64)
+        ).to(card)
+        aligned = flat[1:].clone().view(c, n)
+        offset = flat[1:].view(c, n)                 # 8 bytes off
+        for v in (aligned, offset):
+            before = ops.LAUNCHES["masked_sum_u64"]
+            got = wire.masked_sum_u64(v)
+            plain = ref.masked_sum_u64_ref(v)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["masked_sum_u64"] == before + (1 if n else 0)
+            bits_equal(got.cpu().numpy(), plain.cpu().numpy())
+            np.testing.assert_array_equal(
+                got.cpu().numpy().view(np.uint64), want)
+        before = dict(ops.LAUNCHES)
+        np.testing.assert_array_equal(ops.masked_sum_u64(vals, device=card),
+                                      want)
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        assert launched["masked_sum_u64"] == (1 if n else 0)
+        assert sum(launched.values()) == launched["masked_sum_u64"]
+
+    def test_masked_sum_u64_refuses(self, card):
+        from repro_torch.kernels import wire
+        with pytest.raises(ValueError, match="int64"):
+            wire.masked_sum_u64(torch.zeros((2, 4), dtype=torch.int32,
+                                            device=card))
+        with pytest.raises(ValueError, match="contiguous"):
+            wire.masked_sum_u64(torch.zeros((4, 2), dtype=torch.int64,
+                                            device=card).t())
 
     @pytest.mark.parametrize("n", [0, 1, 511, 513, 100_003])
     @pytest.mark.parametrize("c", [1, 2, 6, 17])

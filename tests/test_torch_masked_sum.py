@@ -1,11 +1,13 @@
 """The port's masked-sum path against the reference, bit for bit, on the
-CPU: the cohort fold's plain version (``kernels.ref.masked_sum_ref``) and
-its device dispatch (``kernels.ops``) against ``repro.kernels.ref`` and
-the Pallas kernel run in interpret mode, the limb helpers and the
-cohort-size guard, and ``MaskedSumAggregator`` (one path: the buffered
-fold) against both of the reference's paths (its per-arrival NumPy
-oracle and its kernel fold) under every dropout subset of a 4-client
-cohort.
+CPU: the cohort fold's plain versions (``kernels.ref.masked_sum_ref`` on
+limbs, ``kernels.ref.masked_sum_u64_ref`` on uint64 bits) and their
+device dispatch (``kernels.ops``) against ``repro.kernels.ref``, the
+reference's ``ops.masked_sum_u64`` and the Pallas kernel run in
+interpret mode, the limb helpers and the cohort-size guard, the uint64
+fold's freedom from any limb split, and ``MaskedSumAggregator`` (one
+path: the buffered fold) against both of the reference's paths (its
+per-arrival NumPy oracle and its kernel fold) under every dropout subset
+of a 4-client cohort.
 
 Every comparison is exact: the fold is integer arithmetic mod 2^64, and
 the aggregator's fixed point, masks and mean are the reference's NumPy
@@ -102,6 +104,96 @@ def test_masked_sum_empty_columns(c):
     for g, w in zip(got, want):
         assert tuple(g.shape) == np.asarray(w).shape == (0,)
     assert ops.masked_sum_u64(vals, device="cpu").shape == (0,)
+
+
+def reference_u64(vals, monkeypatch):
+    """The reference's host-level fold on both of its CPU paths: its
+    default (NumPy's uint64 reduce) and the Pallas limb kernel in
+    interpret mode (``FORCE_BACKEND = "pallas"``); they must agree."""
+    default = jops.masked_sum_u64(vals)
+    with monkeypatch.context() as m:
+        m.setattr(jops, "FORCE_BACKEND", "pallas")
+        kernel = jops.masked_sum_u64(vals)
+    np.testing.assert_array_equal(default, kernel)
+    return default
+
+
+@pytest.mark.parametrize("n", WIDTHS)
+@pytest.mark.parametrize("c", COHORTS)
+def test_masked_sum_u64_matches_reference(c, n, monkeypatch):
+    """The uint64 fold's plain version and its CPU dispatch against the
+    reference's fold and ``np.add.reduce``, bit for bit."""
+    vals = cohort_values(c, n, seed=c * 3000 + n)
+    want = np.add.reduce(vals, axis=0)
+    np.testing.assert_array_equal(reference_u64(vals, monkeypatch), want)
+    got = ref.masked_sum_u64_ref(torch.from_numpy(vals.view(np.int64)))
+    assert got.dtype == torch.int64 and tuple(got.shape) == (n,)
+    np.testing.assert_array_equal(got.numpy().view(np.uint64), want)
+    total = ops.masked_sum_u64(vals, device="cpu")
+    assert total.dtype == np.uint64
+    np.testing.assert_array_equal(total, want)
+
+
+@pytest.mark.parametrize("c", COHORTS)
+def test_masked_sum_u64_wraps(c, monkeypatch):
+    """All-ones values: every column's sum wraps past 2^64 (for c > 1)."""
+    vals = np.full((c, 513), 2 ** 64 - 1, dtype=np.uint64)
+    want = reference_u64(vals, monkeypatch)
+    np.testing.assert_array_equal(want, np.full(513, -c % 2 ** 64,
+                                                dtype=np.uint64))
+    got = ref.masked_sum_u64_ref(torch.from_numpy(vals.view(np.int64)))
+    np.testing.assert_array_equal(got.numpy().view(np.uint64), want)
+    np.testing.assert_array_equal(ops.masked_sum_u64(vals, device="cpu"),
+                                  want)
+
+
+@pytest.mark.parametrize("c", COHORTS)
+def test_masked_sum_u64_empty_columns(c):
+    vals = np.zeros((c, 0), np.uint64)
+    assert jops.masked_sum_u64(vals).shape == (0,)
+    got = ref.masked_sum_u64_ref(torch.from_numpy(vals.view(np.int64)))
+    assert tuple(got.shape) == (0,) and got.dtype == torch.int64
+    total = ops.masked_sum_u64(vals, device="cpu")
+    assert total.shape == (0,) and total.dtype == np.uint64
+
+
+def test_masked_fold_splits_no_limbs(monkeypatch):
+    """``ops.masked_sum_u64`` and the aggregator's flush move the values
+    as uint64 bits: no limb is split or merged on their path."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the uint64 fold split or merged limbs")
+
+    monkeypatch.setattr(ops, "split_limbs", refuse)
+    monkeypatch.setattr(ops, "merge_limbs", refuse)
+    vals = cohort_values(6, 1000, seed=9)
+    np.testing.assert_array_equal(ops.masked_sum_u64(vals, device="cpu"),
+                                  np.add.reduce(vals, axis=0))
+    shards, deltas = _cohort(seed=4)
+    cohort = [ClientInfo(i, DeviceProfile("default", FL.budgets), s)
+              for i, s in enumerate(shards)]
+    agg = MaskedSumAggregator()
+    agg.reset(FedAvg(FL).aggregate)
+    agg.begin_round(1, cohort)
+    for ci, delta in zip(cohort, deltas):
+        agg.submit(ClientReport(
+            client=ci, delta={k: torch.from_numpy(v.copy())
+                              for k, v in delta.items()},
+            weight=1.0, knobs=TKN, policy_knobs=TKN, round_trained=1))
+    upd = agg.flush(1)
+    for k in deltas[0]:
+        plain = sum(d[k].astype(np.float64) for d in deltas) / len(deltas)
+        np.testing.assert_allclose(upd.delta[k].numpy(), plain, rtol=0,
+                                   atol=1e-6)
+
+
+def test_masked_sum_u64_plain_version_refuses_bad_input():
+    with pytest.raises(ValueError, match="int64"):
+        ref.masked_sum_u64_ref(torch.zeros((2, 3), dtype=torch.int32))
+    with pytest.raises(ValueError, match="int64"):
+        ref.masked_sum_u64_ref(torch.zeros((3,), dtype=torch.int64))
+    with pytest.raises(ValueError, match="at most"):
+        ref.masked_sum_u64_ref(torch.zeros(
+            (ops.MASKED_SUM_MAX_CLIENTS + 1, 1), dtype=torch.int64))
 
 
 def test_limb_round_trip():

@@ -24,9 +24,9 @@ def _env():
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Import every repro_torch module (and chip_smoke and the profile
-    script) in a fresh interpreter; neither jax nor any repro module may
-    be loaded."""
+    """Import every repro_torch module (and chip_smoke, the profile script
+    and the A/B script) in a fresh interpreter; neither jax nor any repro
+    module may be loaded."""
     import repro_torch
     names = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
@@ -37,7 +37,7 @@ def test_port_imports_no_jax_and_no_reference():
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{REPO!r}, {os.path.join(REPO, 'scripts')!r}]\n"
-        f"for name in {names!r} + ['chip_smoke', 'profile_port']:\n"
+        f"for name in {names!r} + ['chip_smoke', 'profile_port', 'wire_ab']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib', 'msgpack')) or\n"
