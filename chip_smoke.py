@@ -24,7 +24,17 @@ before the final line:
    after the window and before it.
    The quantizer also at block widths 128, 512 and 1,024 (its
    warp-per-block kernel), 100 and 257 (its CTA-per-row kernel) and on
-   an input one value off a 16-byte boundary, bits 8 and 2, bit for bit.
+   an input one value off a 16-byte boundary, bits 8 and 2, bit for bit;
+   the top-k quantizer likewise at widths 128, 256, 384, 512 and 1,024
+   (its warp kernel) and 100, 257 and one value off 16 bytes (its CTA
+   kernel), k in {1, 2, 63, 64, 65, block - 1}, each run checked to take
+   the kernel it should. Every input is led by rows no healthy delta
+   holds (``special_rows``: NaN, +-inf, subnormals, a scale that
+   underflows, ties at the k-th magnitude), where the kernels must still
+   follow the reference; top-k keeps exactly k per block, and every NaN
+   on top of k. The top-k kernel is timed in turns with ``torch.topk``
+   over |x| (``selection_library_ms``: it selects only, so it is not
+   ``library_ms``).
    The masked-sum fold likewise, both entries (the uint64 one of the main
    path and the limb one of the TPU function's contract), at C in
    {1, 2, 6, 17} clients and n in {1, 511, 513, 1,900,800} columns
@@ -47,7 +57,8 @@ before the final line:
    CAFL-L client rounds on the card (policy -> ``train_client`` x 6 ->
    ``aggregate`` -> ``apply_delta`` -> usage -> ``dual_update`` ->
    eval): three rounds from zero duals (q = 0, then q = 2), one at
-   lambda_C = 0.5 (q = 1), one with ``wire_topk = 64``. Then one
+   lambda_C = 0.5 (q = 1), one with ``wire_topk = 64`` (its six top-k
+   launches must all take the warp kernel). Then one
    client's first microbatch on the card and on the CPU from the same
    parameters and batch.
 4. engine: ``repro_torch.launch.train.main(["--method", "both",
@@ -128,6 +139,15 @@ SUM_TIMED = (6, 1_900_800)
 #: multiple of the warp kernel's 8 blocks per CTA
 QUANT_WIDTHS = (128, 512, 1024, 100, 257)
 QUANT_ROWS = 1001
+#: the top-k kernel's block widths (multiples of 128 take its warp kernel,
+#: the others its CTA kernel) and values of k at each (``topk_ks``)
+TOPK_WIDTHS = (128, 256, 384, 512, 1024, 100, 257)
+
+
+def topk_ks(block: int):
+    return sorted({1, 2, 63, 64, 65, block - 1})
+
+
 #: per-card data-sheet rates (NVIDIA, dense, no sparsity): device-memory
 #: bytes/s, fp32 (non-tensor-core) operations/s and bf16 tensor-core
 #: operations/s
@@ -269,6 +289,62 @@ def delta_like(gen: torch.Generator, shape) -> torch.Tensor:
     return x
 
 
+def special_rows(gen: torch.Generator, block: int, k: int) -> torch.Tensor:
+    """Rows no healthy delta holds, where the wire kernels must still
+    follow the reference: a NaN, two NaNs (one negative), +inf, -inf, a
+    NaN beside +inf, a quarter NaNs, absmax 1e-37 (a scale that underflows
+    at 8 bits), only subnormals (the reference flushes them to zero),
+    subnormals and zeros around the k-th magnitude, one magnitude, ties
+    straddling the k-th magnitude, and two rows of subnormals whose scale
+    (at 8 and at 2 bits) lies in [2^-126, 2^-125): (13, block) f32 on
+    the CPU."""
+    def base():
+        return torch.randn(block, generator=gen) * 1e-3
+
+    def pick(values):
+        values = torch.tensor(values, dtype=torch.float32)
+        return values[torch.randint(len(values), (block,), generator=gen)]
+
+    def perm():
+        return torch.randperm(block, generator=gen)
+
+    nan, inf = float("nan"), float("inf")
+    rows = [base() for _ in range(7)]
+    rows[0][block // 3] = nan
+    rows[1][0] = nan
+    rows[1][-1] = torch.copysign(torch.tensor(nan), torch.tensor(-1.0))
+    rows[2][block // 2] = inf
+    rows[3][7] = -inf
+    rows[4][3], rows[4][block - 5] = inf, nan
+    rows[5][perm()[:block // 4]] = nan
+    rows[6] = rows[6] / rows[6].abs().max() * 1e-37
+    rows.append(pick([2e-40, 1e-40, -2e-40, 5e-45, -1e-39]))
+    r = torch.where(torch.arange(block) % 2 == 0, pick([3e-40, -3e-40, 1e-41]),
+                    pick([0.0, -0.0]))
+    r[perm()[:k // 2]] = base()[:k // 2] + 1e-2
+    rows.append(r)
+    rows.append(pick([0.25, -0.25]))
+    n_big, m = max(min(k - 3, block - 8), 0), 5e-3
+    r = (torch.rand(block, generator=gen) * 0.8 + 0.1) * m
+    order = perm()
+    r[order[:n_big]] = m * (1.5 + 2.5 * torch.rand(n_big, generator=gen))
+    r[order[n_big:n_big + 7]] = pick([m, -m])[:7]
+    rows.append(r)
+    for absmax, normal in ((2e-36, 3e-38), (1.5e-38, -1.3e-38)):
+        r = torch.zeros(block)
+        r[1::3], r[2::3] = 1.1e-38, -9e-39
+        r[0], r[4] = absmax, normal
+        rows.append(r)
+    return torch.stack(rows)
+
+
+def kept_per_row(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The reference's top-k mask row sums: every NaN is kept on top of
+    min(k, the row's non-NaN count)."""
+    nan = torch.isnan(x).sum(dim=1)
+    return torch.clamp(x.shape[1] - nan, max=k) + nan
+
+
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
@@ -279,13 +355,17 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def max_gap(*pairs) -> float:
     """Largest |a - b| over the (kernel, plain) output pairs, as float64;
-    inf where a pair's shapes differ."""
+    0 where both are the same infinity or both NaN, inf where one is NaN
+    and the other not, or a pair's shapes differ."""
     worst = 0.0
     for a, b in pairs:
         if a.shape != b.shape:
             return math.inf
         if a.numel():
-            worst = max(worst, float((a.double() - b.double()).abs().max()))
+            x, y = a.double(), b.double()
+            gap = torch.where((x == y) | (x.isnan() & y.isnan()), 0.0,
+                              (x - y).abs())
+            worst = max(worst, float(gap.nan_to_num(nan=math.inf).max()))
     return worst
 
 
@@ -303,11 +383,11 @@ def check_kernels(leaves, dev) -> dict:
     and cases (codes, scales and mask included). Any bit of difference
     fails the run."""
     from repro_torch.core.compression import compress_decompress, stage_blocks
-    from repro_torch.kernels import ops, quantize, ref, wire
+    from repro_torch.kernels import cuda_lib, ops, quantize, ref, wire
     gen = torch.Generator().manual_seed(7)
     edge = [torch.zeros(()), torch.zeros((0,)), torch.zeros((512,)),
             delta_like(gen, (1,)), delta_like(gen, (1000,)),
-            delta_like(gen, (3, 129))]
+            delta_like(gen, (3, 129)), special_rows(gen, BLOCK, 64)]
     edge[4][256:512] = 0.0                             # an all-zero row
     cases = [x.to(dev) for x in edge] + list(leaves)
     worst = dict.fromkeys(("quantize_blocks", "dequantize_blocks",
@@ -338,19 +418,28 @@ def check_kernels(leaves, dev) -> dict:
                 check(all(bits_equal(g, w) for g, w in zip(got, want)),
                       f"quantize_topk_blocks differs at {tuple(x.shape)} "
                       f"bits={bits} k={k}")
-                if blocks.shape[0]:
-                    check(bool((got[2].sum(dim=1) == k).all()),
-                          "top-k did not keep exactly k per block")
+                # exactly k per block, and every NaN on top of k
+                check(torch.equal(got[2].sum(dim=1, dtype=torch.int64),
+                                  kept_per_row(blocks, k)),
+                      f"top-k did not keep min(k, non-NaN) + NaN per block "
+                      f"at {tuple(x.shape)} k={k}")
             y = ops.quantize_dequantize(x, bits=bits, topk=64)
             check(bits_equal(y, ref.quantize_dequantize_ref(x, bits, topk=64)),
                   f"ops.quantize_dequantize differs at {tuple(x.shape)}")
     # the quantizer at other widths and one value off a 16-byte boundary
-    # (the CTA-per-row kernel at the main path's width)
-    flat = delta_like(gen, (QUANT_ROWS * BLOCK + 1,)).to(dev)
+    # (the CTA-per-row kernel at the main path's width), each input led by
+    # the NaN, inf and subnormal rows
+    def sweep_rows(block, k):
+        x = delta_like(gen, (QUANT_ROWS, block))
+        rows = special_rows(gen, block, k)
+        x[:len(rows)] = rows
+        x[-1] = 0.5                                   # one magnitude
+        return x
+
+    flat = torch.cat([torch.zeros(1), sweep_rows(BLOCK, 64).view(-1)]).to(dev)
     offset = flat[1:].view(QUANT_ROWS, BLOCK)
     check(offset.data_ptr() % 16 != 0, "the offset input is aligned")
-    for x2d in [delta_like(gen, (QUANT_ROWS, w)).to(dev)
-                for w in QUANT_WIDTHS] + [offset]:
+    for x2d in [sweep_rows(w, 64).to(dev) for w in QUANT_WIDTHS] + [offset]:
         for bits in (8, 2):
             c, s = quantize.quantize_blocks(x2d, bits)
             rc, rs = ref.quantize_blocks_ref(x2d, bits)
@@ -360,6 +449,36 @@ def check_kernels(leaves, dev) -> dict:
             check(bits_equal(c, rc) and bits_equal(s, rs),
                   f"quantize_blocks differs at block {x2d.shape[1]} (base "
                   f"{x2d.data_ptr() % 16} bytes off 16) bits={bits}")
+    # the top-k kernels: the warp kernel at multiples of 128 (QUANT_ROWS
+    # rows, so the last CTA is ragged), the CTA kernel at other widths and
+    # one value off a 16-byte boundary
+    for block in TOPK_WIDTHS:
+        for k in topk_ks(block):
+            x2d = sweep_rows(block, k).to(dev)
+            inputs = [(x2d, block % 128 == 0)]
+            if block == BLOCK:
+                flat = torch.cat([torch.zeros(1, device=dev), x2d.view(-1)])
+                inputs.append((flat[1:].view(QUANT_ROWS, block), False))
+            for x_in, warp in inputs:
+                for bits in (8, 2):
+                    before = dict(cuda_lib.TOPK_VARIANTS)
+                    got = wire.quantize_topk_blocks(x_in, bits, k)
+                    want = ref.quantize_topk_blocks_ref(x_in, bits, k)
+                    torch.cuda.synchronize()
+                    kernel = "warp" if warp else "cta"
+                    check(cuda_lib.TOPK_VARIANTS[kernel] == before[kernel] + 1,
+                          f"quantize_topk_blocks at block {block} (base "
+                          f"{x_in.data_ptr() % 16} bytes off 16) did not take "
+                          f"its {kernel} kernel")
+                    worst["quantize_topk_blocks"] = max(
+                        worst["quantize_topk_blocks"], max_gap(*zip(got, want)))
+                    check(all(bits_equal(g, w) for g, w in zip(got, want)),
+                          f"quantize_topk_blocks differs at block {block} "
+                          f"(base {x_in.data_ptr() % 16} bytes off 16) "
+                          f"bits={bits} k={k}")
+                    check(torch.equal(got[2].sum(dim=1, dtype=torch.int64),
+                                      kept_per_row(x_in, k)),
+                          f"top-k kept the wrong count at block {block} k={k}")
     tree = {f"leaf{i}": x for i, x in enumerate(cases)}
     for q, topk in ((1, None), (2, None), (2, 64)):
         got = compress_decompress(tree, q, topk=topk)
@@ -423,18 +542,22 @@ def kernel_records(leaves, card_name: str):
         "bound_ms": b_ms, "bound_by": b_by})
     # top-k: read x, write codes + mask + scales. The function needs the
     # quantizer's ~6 ops per value plus a few to select k of a block (a
-    # compare with the k-th magnitude and a tie count: 2), not the
-    # block-sized rank loop this kernel's design spends
+    # compare with the k-th magnitude and a tie count: 2). No PyTorch call
+    # computes it; torch.topk over |x| selects only (with its own tie
+    # order, and no codes), so it is a yardstick apart from library_ms
     b_ms, b_by = bound(n * 4 + 2 * n + nb * 4, 8 * n)
+    ms, selection = time_turns_ms(
+        lambda: wire.quantize_topk_blocks(buf, bits, k),
+        lambda: torch.topk(buf.abs(), k, dim=1, sorted=False))
     recs.append({
         "name": "quantize_topk_blocks",
         "replaces": "src/repro/kernels/wire.py:84",
-        "ms": time_ms(lambda: wire.quantize_topk_blocks(buf, bits, k)),
+        "ms": ms,
         "plain_ms": time_ms(lambda: ref.quantize_topk_blocks_ref(buf, bits,
                                                                  k),
                             reps=5, warmup=1),
         "host_us": host_us(lambda: wire.quantize_topk_blocks(buf, bits, k)),
-        "library_ms": None,
+        "library_ms": None, "selection_library_ms": selection,
         "bound_ms": b_ms, "bound_by": b_by})
     for r in recs:
         r.update(route="cuda", source=SOURCE)
@@ -793,7 +916,7 @@ def drive_rounds(dev, cfg, fl, ds):
     from repro_torch.core.client import ClientRunner
     from repro_torch.core.freezing import count_params
     from repro_torch.data import FederatedData
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import cuda_lib, ops
     from repro_torch.models import build
 
     model = build(cfg)
@@ -821,9 +944,12 @@ def drive_rounds(dev, cfg, fl, ds):
         clients = rng.choice(fl.num_clients, size=fl.clients_per_round,
                              replace=False)
         before = dict(ops.LAUNCHES)
+        before_topk = dict(cuda_lib.TOPK_VARIANTS)
         results = [runner.train_client(int(c), params, kn) for c in clients]
         torch.cuda.synchronize()
         launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        topk_kernels = {k: cuda_lib.TOPK_VARIANTS[k] - before_topk[k]
+                        for k in before_topk}
         params = aggregation.apply_delta(
             params, aggregation.aggregate([r.delta for r in results]))
         usages = [resources.usage(r.params_active, kn) for r in results]
@@ -841,7 +967,8 @@ def drive_rounds(dev, cfg, fl, ds):
                "wire_mb_actual": results[0].wire_mb_actual,
                "wire_mb_closed_form": want_mb,
                "params_active": results[0].params_active,
-               "launches": launched, "duals_after": dict(duals.lam),
+               "launches": launched, "topk_kernels": topk_kernels,
+               "duals_after": dict(duals.lam),
                "seconds": seconds}
         emit(rec)
         records.append(rec)
@@ -868,6 +995,10 @@ def drive_rounds(dev, cfg, fl, ds):
                   and launched["dequantize_blocks"] == per_client,
                   f"round {t}: expected {per_client} launches of {quant} "
                   f"and dequantize_blocks, got {launched}")
+            # the staged buffer is aligned and 256 wide: the warp kernel
+            check(topk_kernels["cta"] == 0 and topk_kernels["warp"] ==
+                  launched["quantize_topk_blocks"],
+                  f"round {t}: top-k launches by kernel {topk_kernels}")
     check(records[0]["knobs"]["q"] == 0, "round 1 must run at q=0")
     check(records[1]["knobs"]["q"] == 2 and records[2]["knobs"]["q"] == 2,
           "rounds 2-3 must run at q=2")

@@ -9,7 +9,9 @@ Prints JSON lines:
 - ``kernel_device``: the device time of each wire kernel per client delta
   of the full-width char-LM (one launch over the delta's 16 leaves
   staged into one buffer, as ``finalize_delta`` runs it; bits 2, k 64),
-  averaged over 20 deltas.
+  averaged over 20 deltas, beside ``torch.mul``'s (the dequantizer's
+  library call) and the device time of all kernels of ``torch.topk``
+  over |x| (a selection-only yardstick for the top-k kernel).
 - ``profile``: one client's LocalTrain at the given knobs (5 local
   steps): wall time per microbatch without the profiler, per step part
   (grad, masked AdamW, the wire round trip) with a synchronize around
@@ -62,22 +64,28 @@ from chip_smoke import (FLASH_TIMED, SUM_TIMED, check, emit,  # noqa: E402
 def device_kernels(fn, reps: int = 1):
     """Run ``fn`` ``reps`` times under torch.profiler -> (wall seconds,
     {kernel name: (launches, device us)}) for the CUDA kernels it ran,
-    averaged per repetition."""
+    averaged per repetition. A window in which the tracer delivered no
+    device activity at all (seen once on the card, between two windows
+    that traced) is taken once more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            out[e.key] = (e.count / reps, e.self_device_time_total / reps)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out = {}
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0):
+                out[e.key] = (e.count / reps, e.self_device_time_total / reps)
+        if out:
+            break
     return wall / reps, out
 
 
@@ -112,6 +120,10 @@ def wire_kernel_device_us(leaves, bits: int = 2, k: int = 64) -> dict:
         "quantize_topk_blocks": kernel_device_us(
             lambda: wire.quantize_topk_blocks(buf, bits, k),
             "quantize_topk_blocks"),
+        "topk_selection_library": sum(
+            us for _, us in device_kernels(
+                lambda: torch.topk(buf.abs(), k, dim=1, sorted=False),
+                reps=20)[1].values()),
     }
 
 

@@ -9,9 +9,9 @@ timing helpers are this checkout's (``chip_smoke.py``,
 ``profile_port.py``), so both checkouts are timed the same way. At the
 main path's shapes:
 
-- ``quantize_blocks`` per client delta (7,428 blocks of 256, bits 2)
-  and ``dequantize_blocks`` (a control where the two checkouts share
-  the kernel);
+- ``quantize_blocks`` and ``quantize_topk_blocks`` (k 64) per client
+  delta (7,428 blocks of 256, bits 2) and ``dequantize_blocks`` (a
+  control where the two checkouts share the kernel);
 - the masked fold (6 clients x 1,900,800 uint64): the limb entry
   (``wire.masked_sum_limbs``), the uint64 entry (``wire.masked_sum_u64``)
   where the checkout has one, ``torch.sum`` over int64, and
@@ -78,6 +78,8 @@ def main(argv=None) -> int:
     stacked = torch.from_numpy(vals.view(np.int64)).to(dev)
     calls = {
         "quantize_blocks": (lambda: quantize.quantize_blocks(buf, 2), 1000),
+        "quantize_topk_blocks": (lambda: wire.quantize_topk_blocks(buf, 2, 64),
+                                 1000),
         "dequantize_blocks": (lambda: quantize.dequantize_blocks(
             codes, scales, out=out), 1000),
         "masked_sum_limbs": (lambda: wire.masked_sum_limbs(hi, lo), 100),
@@ -87,6 +89,7 @@ def main(argv=None) -> int:
     names = list(calls)
     ms = time_turns_ms(*(calls[k][0] for k in names))
     device_names = {"quantize_blocks": "quantize_blocks",
+                    "quantize_topk_blocks": "quantize_topk_blocks",
                     "dequantize_blocks": "dequantize_blocks",
                     "masked_sum_limbs": "masked_sum_limbs",
                     "masked_sum_u64": "masked_sum_u64",

@@ -8,8 +8,23 @@
 // Bit-for-bit contract with repro_torch/kernels/ref.py (and so with
 // repro/kernels/ref.py): the scale is absmax * inv with inv = f32(1/(L-1))
 // passed from the host (a multiply, never a division); x / safe is the
-// correctly rounded fp32 division (div.rn.f32: build WITHOUT
-// --use_fast_math and never use __fdividef); rintf rounds half to even.
+// correctly rounded fp32 division (build WITHOUT --use_fast_math and never
+// use __fdividef); the conversion to int rounds half to even, as rint
+// does (cvt.rni), and gives 0 for a NaN. The reference runs under
+// XLA, which flushes fp32 subnormals (inputs and results) to zeros of
+// their sign. The kernels take that flush from the instructions, not from
+// -ftz=true (the flags are shared with flash_attention.cu): the scale is
+// mul.ftz.f32 (a subnormal absmax or product gives 0), and a subnormal x
+// over any safe >= 2^-125 already rounds to the code 0 of its flushed
+// value, so the dense quantizers flush their values only in a row whose
+// scale lies in [2^-126, 2^-125) (a warp-uniform test a row); the top-k
+// kernels rank values flushed by a mul.ftz by 1 (one instruction a
+// value). (div.rn.ftz.f32 would flush for free, but it measured 5% slower
+// than div.rn.f32 in the dense kernel on delta-like rows.) The absmax
+// propagates NaN as jnp.max
+// does (max.NaN.f32; fmaxf would drop it), and a NaN quotient takes code
+// 0, the reference's cast; so a block holding a NaN gets scale NaN, and
+// one holding +-inf scale inf and codes 0.
 //
 // What bounds them: all three functions are bound by bytes, with a
 // handful of operations per value (selecting k of a row needs no more).
@@ -17,14 +32,17 @@
 // (core/compression.py), so each kernel runs once per delta.
 // The designs keep each pass to one read of the input, with the row's
 // scale reduced or loaded once per row (never a second pass over device
-// memory). quantize_blocks gives each block of a multiple of 128 values
+// memory). Both quantizers give each block of a multiple of 128 values
 // to one warp: float4 loads, an absmax of five warp shuffles (no shared
-// memory, no barrier), codes stored four to a 32-bit word, eight blocks
-// to a CTA; other widths and unaligned inputs take one CTA per row, one
-// thread per value. The top-k kernel keeps the CTA per row: its rank
-// reads the row from shared memory, never from device memory again, but
-// it costs `block` compares per value, so it sits far above the
-// function's byte bound (a radix select would cut that).
+// memory, no barrier), codes (and the top-k mask) stored four to a
+// 32-bit word, eight blocks to a CTA; other widths and unaligned inputs
+// take one CTA per row, one thread per value. The top-k warp kernel
+// selects in registers: the k-th largest magnitude's bit pattern is
+// found MSB first, one warp-wide count a bit (at most 31, and it stops
+// once exactly k magnitudes are at or above the candidate), and the ties
+// at it are ranked in index order by ballots, so it spends tens of
+// operations per value where the CTA kernel's pairwise rank spends
+// `block` compares.
 //
 // The masked-sum fold is integer arithmetic, exact by construction, and
 // bound by bytes too: each value is read once and each sum written once.
@@ -39,12 +57,41 @@ namespace {
 
 constexpr int kMaxBlock = 1024;   // one thread per value of a row
 constexpr int kWarp = 32;
+constexpr unsigned kFullWarp = 0xffffffffu;
 
-// Max of |x| over the CTA's row. Every thread of the CTA must call it;
-// threads past the row's end pass 0. Returns the same value to all.
+// A subnormal -> a zero of its sign (XLA's flush), by a multiply by 1
+// that flushes; NaN, inf and normal values pass unchanged.
+__device__ __forceinline__ float flush(float v) {
+  float r;
+  asm("mul.ftz.f32 %0, %1, 0f3F800000;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ float4 flush4(float4 v) {
+  return make_float4(flush(v.x), flush(v.y), flush(v.z), flush(v.w));
+}
+
+// max(a, b), NaN if either is NaN (jnp.max's rule; fmaxf drops a NaN)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// absmax * inv, flushed as XLA flushes: a subnormal absmax (a row of
+// zeros and subnormals) or product gives 0
+__device__ __forceinline__ float scale_of(float absmax, float inv) {
+  float r;
+  asm("mul.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(absmax), "f"(inv));
+  return r;
+}
+
+// Max of |x| over the CTA's row, NaN if any is NaN. Every thread of the
+// CTA must call it; threads past the row's end pass 0. Returns the same
+// value to all.
 __device__ __forceinline__ float row_absmax(float a, float* warp_max) {
   for (int off = kWarp / 2; off > 0; off >>= 1) {
-    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+    a = max_nan(a, __shfl_xor_sync(kFullWarp, a, off));
   }
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -52,17 +99,30 @@ __device__ __forceinline__ float row_absmax(float a, float* warp_max) {
   __syncthreads();
   const int n_warps = blockDim.x / kWarp;
   float m = 0.0f;
-  for (int w = 0; w < n_warps; ++w) m = fmaxf(m, warp_max[w]);
+  for (int w = 0; w < n_warps; ++w) m = max_nan(m, warp_max[w]);
   return m;
 }
 
+// Below this scale (2^-125) a subnormal x / scale can round to a code of
+// +-1 where the reference, which flushes x first, gives 0: such a row's
+// values are flushed before quantize_value (needs_flush).
+constexpr float kFlushBelow = 2.35098870164457501594e-38f;
+
+__device__ __forceinline__ bool needs_flush(float scale) {
+  return scale > 0.0f && scale < kFlushBelow;
+}
+
 // clip(rint(x / safe), -qmax, qmax) as int8; safe = scale, or 1 when the
-// row is all zeros (scale == 0).
+// row is all zeros (scale == 0) or holds a NaN (scale NaN). The division
+// is correctly rounded (a subnormal quotient rounds to code 0, as the
+// reference's flushed one). The conversion rounds half to even, as rint
+// does, saturates +-inf and turns a NaN quotient (x NaN, or +-inf over
+// scale inf) into 0, the reference's cast; the clip is then on integers.
 __device__ __forceinline__ int8_t quantize_value(float x, float scale,
                                                  float qmax) {
   const float safe = scale > 0.0f ? scale : 1.0f;
-  const float q = fminf(fmaxf(rintf(x / safe), -qmax), qmax);
-  return static_cast<int8_t>(static_cast<int>(q));
+  const int m = static_cast<int>(qmax);
+  return static_cast<int8_t>(min(max(__float2int_rn(x / safe), -m), m));
 }
 
 // Replaces repro/kernels/quantize.py::quantize_blocks (_quantize_kernel)
@@ -79,8 +139,11 @@ __global__ void quantize_blocks_kernel(const float* __restrict__ x,
   const bool live = i < block;
   const float v = live ? x[row * block + i] : 0.0f;
   const float absmax = row_absmax(fabsf(v), warp_max);
-  const float scale = absmax * inv;
-  if (live) codes[row * block + i] = quantize_value(v, scale, qmax);
+  const float scale = scale_of(absmax, inv);
+  if (live) {
+    codes[row * block + i] =
+        quantize_value(needs_flush(scale) ? flush(v) : v, scale, qmax);
+  }
   if (i == 0) scales[row] = scale;
 }
 
@@ -88,10 +151,10 @@ __global__ void quantize_blocks_kernel(const float* __restrict__ x,
 // multiple of 128 values (the main path's 256): one warp per block, kVec
 // float4 per lane (block = 128 * kVec). Lane l loads float4 l + 32 j of
 // its row, so each warp-wide load covers 512 consecutive bytes; the
-// absmax is five xor shuffles; each lane packs its float4's four codes
-// into one 32-bit word, so each warp-wide store covers 128 consecutive
-// bytes. A row's early exit is uniform over its warp, so the shuffles
-// always see all 32 lanes.
+// absmax is five xor shuffles (NaN-propagating); each lane packs its
+// float4's four codes into one 32-bit word, so each warp-wide store
+// covers 128 consecutive bytes. A row's early exit is uniform over its
+// warp, so the shuffles always see all 32 lanes.
 constexpr int kQuantWarps = 8;   // blocks per CTA
 
 __device__ __forceinline__ uint32_t quantize4(float4 v, float scale,
@@ -104,7 +167,8 @@ __device__ __forceinline__ uint32_t quantize4(float4 v, float scale,
 }
 
 __device__ __forceinline__ float absmax4(float4 v) {
-  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
+  return max_nan(max_nan(fabsf(v.x), fabsf(v.y)),
+                 max_nan(fabsf(v.z), fabsf(v.w)));
 }
 
 template <int kVec>
@@ -123,13 +187,17 @@ quantize_blocks_warp_kernel(const float4* __restrict__ x,
 #pragma unroll
   for (int j = 0; j < kVec; ++j) {
     v[j] = xr[lane + kWarp * j];
-    a = fmaxf(a, absmax4(v[j]));
+    a = max_nan(a, absmax4(v[j]));
   }
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1) {
-    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+    a = max_nan(a, __shfl_xor_sync(kFullWarp, a, off));
   }
-  const float scale = a * inv;
+  const float scale = scale_of(a, inv);
+  if (needs_flush(scale)) {  // warp-uniform
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) v[j] = flush4(v[j]);
+  }
   uint32_t* cr = codes + row * (kWarp * kVec);
 #pragma unroll
   for (int j = 0; j < kVec; ++j) {
@@ -221,12 +289,15 @@ __global__ void dequantize_blocks_kernel(const int8_t* __restrict__ codes,
   }
 }
 
-// Replaces repro/kernels/wire.py::quantize_topk_blocks (_quantize_topk_kernel).
-// Same CTA shape as quantize_blocks_kernel; |x| of the row goes to shared
-// memory and each thread counts its own rank over the row:
+// Replaces repro/kernels/wire.py::quantize_topk_blocks (_quantize_topk_kernel)
+// at any block width and alignment: the CTA shape of quantize_blocks_kernel.
+// |x| of the row goes to shared memory and each thread counts its own rank
+// over the row:
 //   rank_i = #{j: a_j > a_i} + #{j < i: a_j == a_i},  keep = rank < k.
 // Every thread reads the same a_j in the same step (a shared-memory
-// broadcast, no bank conflicts).
+// broadcast, no bank conflicts). IEEE compares give the reference's NaN
+// rule for free: a NaN is never ahead of another value and has rank 0.
+// The main path's widths take the warp kernel below.
 __global__ void quantize_topk_blocks_kernel(const float* __restrict__ x,
                                             int8_t* __restrict__ codes,
                                             float* __restrict__ scales,
@@ -238,12 +309,12 @@ __global__ void quantize_topk_blocks_kernel(const float* __restrict__ x,
   const int64_t row = blockIdx.x;
   const int i = threadIdx.x;
   const bool live = i < block;
-  const float v = live ? x[row * block + i] : 0.0f;
+  const float v = live ? flush(x[row * block + i]) : 0.0f;
   const float a = fabsf(v);
   if (live) absx[i] = a;
   // row_absmax's __syncthreads also publishes absx
   const float absmax = row_absmax(a, warp_max);
-  const float scale = absmax * inv;
+  const float scale = scale_of(absmax, inv);
   if (live) {
     int rank = 0;
     for (int j = 0; j < block; ++j) {
@@ -256,6 +327,145 @@ __global__ void quantize_topk_blocks_kernel(const float* __restrict__ x,
   }
   if (i == 0) scales[row] = scale;
 }
+
+// Replaces repro/kernels/wire.py::quantize_topk_blocks for blocks of a
+// multiple of 128 values (the main path's 256): one warp per block, the
+// loads, absmax and scale of quantize_blocks_warp_kernel, then an exact
+// select of the k largest magnitudes in registers. The key of a value is
+// the bit pattern of its flushed |x| as an int, whose order is the float
+// order (+inf included); a NaN's key is -1, so it is never counted ahead
+// of another value, and it is kept. T, the largest key with
+// #{key >= T} >= k (0 when fewer than k values are not NaN), is built MSB
+// first over the bits under the block's largest key, one warp-wide count
+// (__reduce_add_sync) per bit, until exactly k keys are >= T. A value
+// with key > T is kept. Of those with key == T, all are kept when
+// #{key >= T} <= k, else the first k - #{key > T} in index order: lane
+// l's float4 j holds values 128 j + 4 l .. 128 j + 4 l + 3, so a tie's
+// place is the ties of earlier float4 slots, plus those of lower lanes in
+// its slot (a ballot a component), plus those before it in its float4.
+// That is the reference's rank < k with ties to the lower index, bit for
+// bit.
+template <int kVec>
+__global__ void __launch_bounds__(kQuantWarps * kWarp)
+quantize_topk_blocks_warp_kernel(const float4* __restrict__ x,
+                                 uint32_t* __restrict__ codes,
+                                 float* __restrict__ scales,
+                                 uint32_t* __restrict__ mask, int n_blocks,
+                                 float qmax, float inv, int k) {
+  constexpr int kVals = 4 * kVec;
+  const int lane = threadIdx.x % kWarp;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kQuantWarps +
+                      threadIdx.x / kWarp;
+  if (row >= n_blocks) return;
+  const float4* xr = x + row * (kWarp * kVec);
+  float v[kVals];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    const float4 f = flush4(xr[lane + kWarp * j]);
+    v[4 * j] = f.x;
+    v[4 * j + 1] = f.y;
+    v[4 * j + 2] = f.z;
+    v[4 * j + 3] = f.w;
+  }
+  float a = 0.0f;
+  int key[kVals];
+  int top = -1;      // this lane's largest key
+  int valid = 0;     // this lane's values that are not NaN
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) {
+    a = max_nan(a, fabsf(v[i]));
+    key[i] = isnan(v[i]) ? -1 : __float_as_int(fabsf(v[i]));
+    top = max(top, key[i]);
+    valid += key[i] >= 0;
+  }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    a = max_nan(a, __shfl_xor_sync(kFullWarp, a, off));
+  }
+  const float scale = scale_of(a, inv);
+  top = __reduce_max_sync(kFullWarp, top);
+  int t = 0;                                       // T
+  int at_t = __reduce_add_sync(kFullWarp, valid);  // #{key >= T}
+  // Once exactly k keys are >= T, they are the k kept and the search
+  // ends (for delta-like rows at the first bit where the k-th and
+  // (k+1)-th largest magnitudes differ); at_t > k also means top >= 0.
+  for (int b = 31 - __clz(top); b >= 0 && at_t > k; --b) {
+    const int cand = t | (1 << b);
+    // #{key < cand} from the sign of key - cand (no overflow: keys are
+    // in [-1, 0x7f800000] and cand in [1, 0x7fffffff])
+    int below = 0;
+#pragma unroll
+    for (int i = 0; i < kVals; ++i) {
+      below += static_cast<unsigned>(key[i] - cand) >> 31;
+    }
+    const int n = kWarp * kVals - __reduce_add_sync(kFullWarp, below);
+    if (n >= k) {
+      t = cand;
+      at_t = n;
+    }
+  }
+  // ties at T ration only when #{key >= T} > k (warp-uniform)
+  const bool ration = at_t > k;
+  int need = 0;                                    // ties to keep
+  if (ration) {
+    int above = 0;
+#pragma unroll
+    for (int i = 0; i < kVals; ++i) above += key[i] > t;
+    need = k - __reduce_add_sync(kFullWarp, above);
+  }
+  const unsigned lower_lanes = (1u << lane) - 1u;
+  int before = 0;      // ties in the row's earlier float4 slots
+  uint32_t* cr = codes + row * (kWarp * kVec);
+  uint32_t* mr = mask + row * (kWarp * kVec);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    int place = before;  // ties ahead of this lane's first value of slot j
+    if (ration) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const unsigned ties = __ballot_sync(kFullWarp, key[4 * j + c] == t);
+        place += __popc(ties & lower_lanes);
+        before += __popc(ties);
+      }
+    }
+    uint32_t cw = 0, mw = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = 4 * j + c;
+      const bool tie = key[i] == t;
+      const bool keep = key[i] > t || key[i] < 0 ||
+                        (tie && (!ration || place < need));
+      place += tie;
+      if (keep) {
+        cw |= static_cast<uint32_t>(static_cast<uint8_t>(
+                  quantize_value(v[i], scale, qmax))) << (8 * c);
+        mw |= 1u << (8 * c);
+      }
+    }
+    cr[lane + kWarp * j] = cw;
+    mr[lane + kWarp * j] = mw;
+  }
+  if (lane == 0) scales[row] = scale;
+}
+
+template <int kVec>
+void launch_topk_warp(const void* x, void* codes, void* scales, void* mask,
+                      int n_blocks, float qmax, float inv, int k,
+                      cudaStream_t s) {
+  const int grid = (n_blocks + kQuantWarps - 1) / kQuantWarps;
+  quantize_topk_blocks_warp_kernel<kVec><<<grid, kQuantWarps * kWarp, 0, s>>>(
+      static_cast<const float4*>(x), static_cast<uint32_t*>(codes),
+      static_cast<float*>(scales), static_cast<uint32_t*>(mask), n_blocks,
+      qmax, inv, k);
+}
+
+// the top-k warp kernel's launcher by float4s per lane (block / 128 - 1)
+using TopkWarpFn = void (*)(const void*, void*, void*, void*, int, float,
+                            float, int, cudaStream_t);
+constexpr TopkWarpFn kTopkWarp[kMaxBlock / 128] = {
+    launch_topk_warp<1>, launch_topk_warp<2>, launch_topk_warp<3>,
+    launch_topk_warp<4>, launch_topk_warp<5>, launch_topk_warp<6>,
+    launch_topk_warp<7>, launch_topk_warp<8>};
 
 // Replaces repro/kernels/wire.py::masked_sum_limbs (_masked_sum_kernel).
 // hi, lo: (rows, n) uint32 limbs of uint64 values. One thread owns one
@@ -380,15 +590,28 @@ int dequantize_blocks_launch(const void* codes, const void* scales, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// warp != 0 asks for the warp-per-block kernel (the wrapper picks it and
+// counts it); a row it cannot take is refused with cudaErrorInvalidValue.
 int quantize_topk_blocks_launch(const void* x, void* codes, void* scales,
                                 void* mask, int n_blocks, int block, int bits,
-                                float inv, int k, void* stream) {
+                                float inv, int k, int warp, void* stream) {
   const float qmax = static_cast<float>((1 << (bits - 1)) - 1);
-  quantize_topk_blocks_kernel<<<n_blocks, threads_for(block), 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(codes),
-      static_cast<float*>(scales), static_cast<int8_t*>(mask), block, qmax,
-      inv, k);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (warp) {
+    if (block % 128 != 0 || block > kMaxBlock ||
+        reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(codes) % 4 != 0 ||
+        reinterpret_cast<uintptr_t>(mask) % 4 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    kTopkWarp[block / 128 - 1](x, codes, scales, mask, n_blocks, qmax, inv, k,
+                               s);
+  } else {
+    quantize_topk_blocks_kernel<<<n_blocks, threads_for(block), 0, s>>>(
+        static_cast<const float*>(x), static_cast<int8_t*>(codes),
+        static_cast<float*>(scales), static_cast<int8_t*>(mask), block, qmax,
+        inv, k);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

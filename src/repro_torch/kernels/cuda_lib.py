@@ -11,7 +11,9 @@ machine without CUDA.
 ``LAUNCHES`` counts the launches of each kernel. Each kernel wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
 that it went through the kernels; ``FLASH_VARIANTS`` splits the flash
-kernel's count by variant; ``reset_launches`` zeroes the counts.
+kernel's count by variant, ``TOPK_VARIANTS`` the top-k kernel's (one
+warp per block, or one CTA per row); ``reset_launches`` zeroes the
+counts.
 
 ``launch_on`` is the wrappers' one way in: it calls a C entry point on
 the current stream of the tensors' card, entering that card's context
@@ -50,6 +52,8 @@ LAUNCHES: Dict[str, int] = {"quantize_blocks": 0, "dequantize_blocks": 0,
 #: the flash kernel's launches by variant (``flash_attention.VARIANTS``)
 FLASH_VARIANTS: Dict[str, int] = {"mma_bf16": 0, "rows_f32": 0,
                                   "tiled_f32": 0}
+#: the top-k kernel's launches by kernel (``wire.quantize_topk_blocks``)
+TOPK_VARIANTS: Dict[str, int] = {"warp": 0, "cta": 0}
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -61,9 +65,9 @@ _SIGNATURES = {
                                _FLOAT, _VOIDP],
     # codes, scales, out, n_blocks, block, stream
     "dequantize_blocks_launch": [_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _VOIDP],
-    # x, codes, scales, mask, n_blocks, block, bits, inv, k, stream
+    # x, codes, scales, mask, n_blocks, block, bits, inv, k, warp, stream
     "quantize_topk_blocks_launch": [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
-                                    _INT, _INT, _FLOAT, _INT, _VOIDP],
+                                    _INT, _INT, _FLOAT, _INT, _INT, _VOIDP],
     # hi, lo, hi_out, lo_out, rows, n, stream
     "masked_sum_limbs_launch": [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _INT64,
                                 _VOIDP],
@@ -77,7 +81,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, FLASH_VARIANTS):
+    for counts in (LAUNCHES, FLASH_VARIANTS, TOPK_VARIANTS):
         for name in counts:
             counts[name] = 0
 

@@ -6,7 +6,9 @@ delta at q > 0.
 ``repro/kernels/quantize.py``) on CUDA tensors only; the plain versions
 are ``kernels/ref.py``'s twins, and ``kernels/ops.py`` dispatches between
 the two by the tensor's device. Unlike the TPU kernels there is no
-``ROWS_PER_TILE`` padding: any number of rows launches as is.
+``ROWS_PER_TILE`` padding: any number of rows launches as is. Like the
+reference under XLA, the quantizer flushes subnormal inputs and scales
+to zero, and a NaN makes its block's scale NaN and takes code 0.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ def check_bits(bits: int) -> None:
 
 
 #: the kernels' fp32 1/(L-1) by bits (``ref.inv_levels``), computed once
-_INV = {bits: inv_levels(bits) for bits in (2, 8)}
+INV = {bits: inv_levels(bits) for bits in (2, 8)}
 
 
 def _refuse_quantize(x2d, bits) -> None:
@@ -53,7 +55,7 @@ def quantize_blocks(x2d: torch.Tensor, bits: int):
     shape = x2d.shape
     if (index < 0 or x2d.dtype != torch.float32 or len(shape) != 2
             or not x2d.is_contiguous() or not 0 < shape[1] <= MAX_BLOCK
-            or bits not in _INV):
+            or bits not in INV):
         _refuse_quantize(x2d, bits)
     n_blocks, block = shape
     codes = torch.empty_like(x2d, dtype=torch.int8)
@@ -62,7 +64,7 @@ def quantize_blocks(x2d: torch.Tensor, bits: int):
         return codes, scales
     err = cuda_lib.launch_on(index, "quantize_blocks_launch", x2d.data_ptr(),
                              codes.data_ptr(), scales.data_ptr(), n_blocks,
-                             block, bits, _INV[bits])
+                             block, bits, INV[bits])
     cuda_lib.check_launch(err, "quantize_blocks")
     cuda_lib.LAUNCHES["quantize_blocks"] += 1
     return codes, scales

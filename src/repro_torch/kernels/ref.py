@@ -13,6 +13,15 @@ operation, so the three agree bit for bit: the scale is a multiply by the
 fp32 reciprocal ``float32(1/(L-1))``, never a division; the division
 ``x / safe`` is a correctly rounded fp32 division; ``torch.round`` rounds
 half to even like ``jnp.rint``.
+
+They also follow XLA on values no healthy delta holds. XLA flushes fp32
+subnormals to zero, inputs and results alike (on the CPU as on the TPU),
+so the quantizers flush each subnormal input to a zero of its sign
+before the absmax, the division and the top-k magnitudes, and flush a
+subnormal scale (``flush_subnormals``). A NaN propagates through the
+absmax, so a block holding one gets scale NaN; its NaN codes are 0 (the
+reference's cast), and the top-k rank never counts a NaN ahead of
+another value, so every NaN is kept on top of k.
 """
 from __future__ import annotations
 
@@ -21,6 +30,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+_TINY = torch.finfo(torch.float32).tiny
 
 #: rows of the pairwise top-k rank computed at once (bounds the
 #: (rows, block, block) comparison tensor to 32 Mi elements at block 256)
@@ -34,18 +45,28 @@ def inv_levels(bits: int) -> float:
     return float(np.float32(1.0 / (L - 1)))
 
 
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """fp32 subnormals -> zeros of the same sign (XLA's flush); every
+    other value, NaN and inf included, as it is."""
+    return torch.where(x.abs() < _TINY, x * 0, x)
+
+
 def quantize_blocks_ref(x2d: torch.Tensor, bits: int):
     """x2d: (n_blocks, block) fp -> (codes int8, scales fp32).
 
     Zero-preserving mid-tread quantizer: scale = absmax * f32(1/(L-1));
     code = clip(rint(x / safe), -(L-1), L-1), safe = scale or 1 for an
-    all-zero row."""
+    all-zero row (or a NaN scale); subnormal inputs and scales flush to
+    zero, and a NaN code is 0."""
     L = 2 ** (bits - 1)
-    x = x2d.to(torch.float32)
+    x = flush_subnormals(x2d.to(torch.float32))
     absmax = torch.amax(torch.abs(x), dim=1, keepdim=True)
-    scale = absmax * inv_levels(bits)
+    scale = flush_subnormals(absmax * inv_levels(bits))
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     codes = torch.clamp(torch.round(x / safe), -(L - 1), L - 1)
+    # the cast of a NaN to an integer is left undefined by C++: make the
+    # reference's 0 explicit
+    codes = torch.nan_to_num(codes, nan=0.0)
     return codes.to(torch.int8), scale[:, 0]
 
 
@@ -77,8 +98,9 @@ def topk_mask_ref(absx: torch.Tensor, k: int) -> torch.Tensor:
 def quantize_topk_blocks_ref(x2d: torch.Tensor, bits: int, k: int):
     """Fused quantize + per-block top-k: (n_blocks, block) fp ->
     (codes int8, scales f32, mask int8). The scale is the dense absmax;
-    dropped coordinates get code 0."""
-    x = x2d.to(torch.float32)
+    dropped coordinates get code 0. Subnormal magnitudes tie with zero;
+    a NaN is never ranked ahead of another value and is always kept."""
+    x = flush_subnormals(x2d.to(torch.float32))
     codes, scales = quantize_blocks_ref(x, bits)
     keep = topk_mask_ref(torch.abs(x), k)
     codes = torch.where(keep, codes, torch.zeros_like(codes))

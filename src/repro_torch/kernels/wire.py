@@ -7,8 +7,16 @@ that replaces the Pallas kernel of ``repro/kernels/wire.py``: blockwise
 mid-tread quantization plus exactly-k magnitude selection per block
 (ties to the lower index), emitting ``(codes int8, scales f32, mask
 int8)``. Dropped coordinates get code 0, so ``quantize.dequantize_blocks``
-serves the sparse format too. CUDA tensors only; ``kernels/ops.py``
-dispatches CPU tensors to ``ref.quantize_topk_blocks_ref``.
+serves the sparse format too. Rows of a multiple of 128 values on a
+16-byte aligned base take one warp per block, which finds the k-th
+largest magnitude's bit pattern MSB first (one warp-wide count a bit)
+and ranks the ties at it in index order; any other row takes one CTA
+and the pairwise rank. Both follow the reference on values no healthy
+delta holds: subnormals flush to zero (so they tie with zeros), a NaN
+makes its block's scale NaN, gets code 0 and is kept on top of k (it is
+never ranked ahead of another value). CUDA tensors only;
+``kernels/ops.py`` dispatches CPU tensors to
+``ref.quantize_topk_blocks_ref``.
 
 ``masked_sum_u64`` sums a cohort's (C, n) uint64 values mod 2^64 (the
 fold of ``MaskedSumAggregator``, through ``ops.masked_sum_u64``): the
@@ -24,32 +32,47 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.quantize import (check_bits, check_block,
+from repro_torch.kernels.quantize import (INV, MAX_BLOCK, check_bits,
+                                          check_block,
                                           dequantize_blocks)  # noqa: F401
-from repro_torch.kernels.ref import inv_levels
+
+
+def _refuse_topk(x2d, bits, k) -> None:
+    """Raise the fault of ``quantize_topk_blocks``'s inputs (the slow path
+    of its check)."""
+    cuda_lib.check_cuda_tensor(x2d, torch.float32, 2,
+                               "quantize_topk_blocks x2d")
+    check_bits(bits)
+    check_block(x2d.shape[1])
+    raise ValueError(f"k must be in 1..{x2d.shape[1] - 1}, got {k}")
 
 
 def quantize_topk_blocks(x2d: torch.Tensor, bits: int, k: int):
     """x2d: (n_blocks, block) f32 CUDA, 0 < k < block ->
-    (codes int8, scales f32, mask int8)."""
-    cuda_lib.check_cuda_tensor(x2d, torch.float32, 2,
-                               "quantize_topk_blocks x2d")
-    check_bits(bits)
-    n_blocks, block = x2d.shape
-    check_block(block)
-    if not 0 < k < block:
-        raise ValueError(f"k must be in 1..{block - 1}, got {k}")
-    codes = torch.empty((n_blocks, block), dtype=torch.int8, device=x2d.device)
-    scales = torch.empty((n_blocks,), dtype=torch.float32, device=x2d.device)
-    mask = torch.empty((n_blocks, block), dtype=torch.int8, device=x2d.device)
+    (codes int8, scales f32, mask int8). Rows of a multiple of 128 values
+    on a 16-byte aligned base take the warp-per-block kernel, any other
+    the CTA-per-row one (``cuda_lib.TOPK_VARIANTS`` counts each)."""
+    index = x2d.get_device()
+    shape = x2d.shape
+    if (index < 0 or x2d.dtype != torch.float32 or len(shape) != 2
+            or not x2d.is_contiguous() or not 0 < shape[1] <= MAX_BLOCK
+            or bits not in INV or not 0 < k < shape[1]):
+        _refuse_topk(x2d, bits, k)
+    n_blocks, block = shape
+    codes = torch.empty_like(x2d, dtype=torch.int8)
+    scales = x2d.new_empty(n_blocks)
+    mask = torch.empty_like(codes)
     if n_blocks == 0:
         return codes, scales, mask
-    err = cuda_lib.launch_on(
-        x2d.get_device(), "quantize_topk_blocks_launch", x2d.data_ptr(),
-        codes.data_ptr(), scales.data_ptr(), mask.data_ptr(), n_blocks,
-        block, bits, inv_levels(bits), k)
+    ptr = x2d.data_ptr()
+    warp = block % 128 == 0 and ptr % 16 == 0
+    err = cuda_lib.launch_on(index, "quantize_topk_blocks_launch", ptr,
+                             codes.data_ptr(), scales.data_ptr(),
+                             mask.data_ptr(), n_blocks, block, bits,
+                             INV[bits], k, warp)
     cuda_lib.check_launch(err, "quantize_topk_blocks")
     cuda_lib.LAUNCHES["quantize_topk_blocks"] += 1
+    cuda_lib.TOPK_VARIANTS["warp" if warp else "cta"] += 1
     return codes, scales, mask
 
 

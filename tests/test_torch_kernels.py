@@ -70,6 +70,76 @@ def delta_like(rng, n_blocks, block=BLOCK):
     return x
 
 
+#: the names of ``special_rows``' rows, in order
+SPECIAL_ROWS = ("nan", "two_nans", "pos_inf", "neg_inf", "nan_and_inf",
+                "many_nans", "absmax_1e-37", "only_subnormals",
+                "subnormals_zeros_at_kth", "all_tied", "ties_straddle_kth",
+                "scale_2^-126_at_8_bits", "scale_2^-126_at_2_bits")
+
+
+def special_rows(block, k, seed=0):
+    """Rows that no healthy delta holds, where the wire format must still
+    follow the reference: NaN (of both signs), +-inf, a row whose scale
+    underflows to a subnormal (absmax 1e-37 at 8 bits), rows of
+    subnormals, which the reference flushes to signed zeros (XLA's
+    denormals-are-zero), with the ``k``-th magnitude among subnormals and
+    zeros, a row of one magnitude, and a run of ties straddling the
+    ``k``-th magnitude, and two rows whose scale (at 8 and at 2 bits) lies
+    in [2^-126, 2^-125), where a subnormal over the scale would round to
+    a code of +-1 unflushed. (len(SPECIAL_ROWS), block) f32."""
+    rng = np.random.default_rng(seed)
+
+    def base():
+        return (rng.normal(size=block) * 1e-3).astype(np.float32)
+
+    neg_nan = np.copysign(np.float32(np.nan), np.float32(-1.0))
+    rows = []
+    r = base(); r[block // 3] = np.nan; rows.append(r)
+    r = base(); r[0] = np.nan; r[-1] = neg_nan; rows.append(r)
+    r = base(); r[block // 2] = np.inf; rows.append(r)
+    r = base(); r[7] = -np.inf; rows.append(r)
+    r = base(); r[3] = np.inf; r[block - 5] = np.nan; rows.append(r)
+    r = base(); r[rng.permutation(block)[:block // 4]] = np.nan; rows.append(r)
+    r = base(); rows.append((r / np.abs(r).max() * np.float32(1e-37))
+                            .astype(np.float32))
+    rows.append(rng.choice(np.array([2e-40, 1e-40, -2e-40, 5e-45, -1e-39],
+                                    np.float32), size=block))
+    r = np.where(np.arange(block) % 2 == 0,
+                 rng.choice(np.array([3e-40, -3e-40, 1e-41], np.float32),
+                            size=block),
+                 rng.choice(np.array([0.0, -0.0], np.float32), size=block))
+    r = r.astype(np.float32)
+    r[rng.permutation(block)[:k // 2]] = base()[:k // 2] + np.float32(1e-2)
+    rows.append(r)
+    rows.append(np.where(rng.random(block) < 0.5, np.float32(0.25),
+                         np.float32(-0.25)).astype(np.float32))
+    # max(k - 3, 0) magnitudes above m, 7 values of +-m scattered, the
+    # rest below: the k-th magnitude falls inside the run of ties
+    n_big = max(min(k - 3, block - 8), 0)
+    m = np.float32(5e-3)
+    r = (rng.uniform(0.1, 0.9, size=block) * m).astype(np.float32)
+    order = rng.permutation(block)
+    r[order[:n_big]] = (m * rng.uniform(1.5, 4.0, size=n_big)).astype(
+        np.float32)
+    r[order[n_big:n_big + 7]] = m * np.where(rng.random(7) < 0.5, 1, -1)
+    rows.append(r.astype(np.float32))
+    for absmax, normal in ((2e-36, 3e-38), (1.5e-38, -1.3e-38)):
+        r = np.zeros(block, np.float32)
+        r[1::3], r[2::3] = np.float32(1.1e-38), np.float32(-9e-39)
+        r[0], r[4] = np.float32(absmax), np.float32(normal)
+        rows.append(r)
+    out = np.stack(rows).astype(np.float32)
+    assert out.shape == (len(SPECIAL_ROWS), block)
+    return out
+
+
+def kept_per_row(x, k):
+    """The reference's rule for the top-k mask's row sums: every NaN is
+    kept on top of min(k, the row's non-NaN count)."""
+    nan = np.isnan(x).sum(axis=1)
+    return (np.minimum(k, x.shape[1] - nan) + nan).tolist()
+
+
 # ---------------------------------------------------------------------------
 # plain versions vs the JAX reference and the Pallas kernels (interpret)
 # ---------------------------------------------------------------------------
@@ -127,6 +197,85 @@ def test_quantize_topk_blocks_twin(bits, k, J):
         bits_equal(codes.numpy(), jc)
         bits_equal(scales.numpy(), js)
         bits_equal(mask.numpy(), jm)
+
+
+def pallas_rows(fn, x, J):
+    """``fn`` (a Pallas kernel in interpret mode) on ``x`` zero-padded to
+    the reference's ROWS_PER_TILE rows, cut back to ``x``'s rows."""
+    from repro.kernels.quantize import ROWS_PER_TILE
+    n = x.shape[0]
+    padded = np.zeros((-(-n // ROWS_PER_TILE) * ROWS_PER_TILE, x.shape[1]),
+                      np.float32)
+    padded[:n] = x
+    return [np.asarray(out)[:n] for out in fn(J.jnp.asarray(padded))]
+
+
+@pytest.mark.parametrize("bits", [8, 2])
+@pytest.mark.parametrize("k", [1, 64, 255])
+def test_quantize_blocks_special_rows(bits, k, J):
+    """NaN, inf and subnormal rows through the dense quantizer: the plain
+    version, ``ops`` and the round trip equal the reference and the Pallas
+    kernel bit for bit (a NaN scale for a NaN row, NaN codes 0, subnormals
+    and a subnormal scale flushed to zero)."""
+    x = special_rows(BLOCK, k)
+    codes, scales = ref.quantize_blocks_ref(torch.from_numpy(x), bits)
+    wc, ws, wm, _ = ops.quantize_wire(torch.from_numpy(x), bits=bits)
+    assert wm is None
+    jc, js = J.ref.quantize_blocks_ref(J.jnp.asarray(x), bits)
+    pc, ps = pallas_rows(lambda t: J.quant(t, bits, interpret=True), x, J)
+    for want_c, want_s in ((jc, js), (pc, ps)):
+        for got_c, got_s in ((codes, scales), (wc, ws)):
+            bits_equal(got_c.numpy(), want_c)
+            bits_equal(got_s.numpy(), want_s)
+    assert np.isnan(scales.numpy()[:6]).tolist() == [True, True, False, False,
+                                                     True, True]
+    assert scales.numpy()[6 if bits == 8 else 7] == 0.0
+    bits_equal(ops.quantize_dequantize(torch.from_numpy(x), bits=bits)
+               .numpy(), J.ref.quantize_dequantize_ref(J.jnp.asarray(x), bits))
+
+
+@pytest.mark.parametrize("bits", [8, 2])
+@pytest.mark.parametrize("k", [1, 64, 255])
+def test_quantize_topk_special_rows(bits, k, J):
+    """The same rows through the top-k quantizer: NaNs kept on top of k,
+    subnormals tied with zeros, ties at the k-th magnitude kept in index
+    order, bit for bit against the reference and the Pallas kernel."""
+    x = special_rows(BLOCK, k)
+    got = ref.quantize_topk_blocks_ref(torch.from_numpy(x), bits, k)
+    wire = ops.quantize_wire(torch.from_numpy(x), bits=bits, topk=k)[:3]
+    assert got[2].sum(dim=1).tolist() == kept_per_row(x, k)
+    want = [J.ref.quantize_topk_blocks_ref(J.jnp.asarray(x), bits, k),
+            pallas_rows(lambda t: J.wire.quantize_topk_blocks(
+                t, bits, k, interpret=True), x, J)]
+    for w in want:
+        for g in (got, wire):
+            for g_out, w_out in zip(g, w):
+                bits_equal(g_out.numpy(), w_out)
+    bits_equal(ops.quantize_dequantize(torch.from_numpy(x), bits=bits,
+                                       topk=k).numpy(),
+               J.ref.quantize_dequantize_ref(J.jnp.asarray(x), bits, topk=k))
+
+
+@pytest.mark.parametrize("q,topk", [(1, None), (2, None), (1, 64), (2, 64)])
+def test_compress_decompress_special_leaf(q, topk, J):
+    """A tree holding a leaf of NaN, inf and subnormal rows and a ragged
+    leaf with a NaN in its tail: the staged round trip equals
+    ``repro.core.compression.compress_decompress`` leaf for leaf."""
+    special = special_rows(BLOCK, 64, seed=q)
+    ragged = (np.random.default_rng(q).normal(size=(300,)) * 1e-3).astype(
+        np.float32)
+    ragged[290] = np.nan
+    ragged[3] = np.float32(2e-40)
+    leaves = {"special": special, "ragged": ragged,
+              "plain": delta_like(np.random.default_rng(q), 3)}
+    got = compression.compress_decompress(
+        {name: torch.from_numpy(x) for name, x in leaves.items()}, q,
+        topk=topk)
+    want = J.comp.compress_decompress(
+        {name: J.jnp.asarray(x) for name, x in leaves.items()}, q, topk=topk)
+    assert np.isnan(got["ragged"].numpy()[256:]).all()
+    for name in leaves:
+        bits_equal(got[name].numpy(), want[name])
 
 
 SHAPES = [(), (1,), (37,), (3, 129), (5, 7, 11), (0,), (3, 256),
@@ -431,6 +580,64 @@ class TestCudaKernels:
             assert ops.LAUNCHES["quantize_blocks"] == before + 1
             bits_equal(codes.cpu().numpy(), want_c.cpu().numpy())
             bits_equal(scales.cpu().numpy(), want_s.cpu().numpy())
+
+    @staticmethod
+    def rows_on_card(x, card):
+        """(rows, block) f32 on the card twice: on an aligned base, and as
+        a view one value off a 16-byte boundary."""
+        n, block = x.shape
+        flat = torch.from_numpy(np.concatenate([[0.5], x.reshape(-1)])
+                                .astype(np.float32)).to(card)
+        offset = flat[1:].view(n, block)
+        assert offset.data_ptr() % 16 == 4 and offset.is_contiguous()
+        return flat[1:].clone().view(n, block), offset
+
+    @pytest.mark.parametrize("block", [100, 128, 256, 257, 512, 1024])
+    @pytest.mark.parametrize("bits", [8, 2])
+    def test_quantize_blocks_special_rows(self, card, block, bits):
+        """Both quantizer kernels on the NaN, inf and subnormal rows and an
+        all-tied row, bit for bit against the plain version."""
+        from repro_torch.kernels import quantize
+        x = delta_like(np.random.default_rng(block), 64, block)
+        x[:len(SPECIAL_ROWS)] = special_rows(block, 64, seed=block)
+        x[-1] = -0.125
+        for x_t in self.rows_on_card(x, card):
+            codes, scales = quantize.quantize_blocks(x_t, bits)
+            want_c, want_s = ref.quantize_blocks_ref(x_t, bits)
+            torch.cuda.synchronize()
+            bits_equal(codes.cpu().numpy(), want_c.cpu().numpy())
+            bits_equal(scales.cpu().numpy(), want_s.cpu().numpy())
+            assert np.isnan(scales.cpu().numpy()[0])
+
+    @pytest.mark.parametrize("block", [128, 256, 384, 512, 1024, 100, 257])
+    @pytest.mark.parametrize("bits", [8, 2])
+    def test_quantize_topk_widths(self, card, block, bits):
+        """Both top-k kernels against the plain version at k in {1, 2, 63,
+        64, 65, block - 1}: the warp kernel (multiples of 128 on an aligned
+        base, 1,001 rows so the last CTA is ragged) and the CTA-per-row
+        kernel (other widths, and the same rows one value off a 16-byte
+        boundary), on delta-like rows, the NaN, inf and subnormal rows and
+        an all-tied row. One launch a call; every NaN is kept on top of
+        k."""
+        from repro_torch.kernels import wire
+        for k in sorted({1, 2, 63, 64, 65, block - 1}):
+            x = delta_like(np.random.default_rng(block + k), 1001, block)
+            x[:len(SPECIAL_ROWS)] = special_rows(block, k, seed=k)
+            x[-1] = 0.5
+            for x_t, warp in zip(self.rows_on_card(x, card),
+                                 (block % 128 == 0, False)):
+                before = ops.LAUNCHES["quantize_topk_blocks"]
+                kernel = "warp" if warp else "cta"
+                before_kernel = cuda_lib.TOPK_VARIANTS[kernel]
+                got = wire.quantize_topk_blocks(x_t, bits, k)
+                want = ref.quantize_topk_blocks_ref(x_t, bits, k)
+                torch.cuda.synchronize()
+                assert ops.LAUNCHES["quantize_topk_blocks"] == before + 1
+                assert cuda_lib.TOPK_VARIANTS[kernel] == before_kernel + 1
+                for g, w in zip(got, want):
+                    bits_equal(g.cpu().numpy(), w.cpu().numpy())
+                assert (got[2].sum(dim=1).tolist()
+                        == kept_per_row(x, k)), (block, k)
 
     @pytest.mark.parametrize("n", [0, 1, 511, 513, 100_003, 100_004])
     @pytest.mark.parametrize("c", [1, 2, 6, 17])
