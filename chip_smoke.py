@@ -71,7 +71,23 @@ before the final line:
    ``train.main``'s default-mode CAFL-L run).
    The char-LM eval of every round now runs through the flash kernel;
    the engine lines count its launches.
-5. serve: Gemma2-9B at full width and depth (42 layers, d 3584, vocab
+5. fleet: the engine's other pieces at the full-width char-LM (16
+   clients, 6 a round). CAFL-L for 2 rounds with the sequential and
+   with the batched executor under deterministic algorithms, held to
+   each other at 2e-3 with equal knobs, participants and launch counts,
+   with each executor's seconds per round and, under torch.profiler,
+   its device kernel launches per client microbatch and busy share in
+   one more LocalTrain round. Then ``examples/async_fleet.py``'s fleet
+   on the wall clock (two tiers, half at compute_scale 2.0, deadline
+   stragglers at 1.1 with jitter 0.2, the batched executor), 3 rounds
+   with the sync barrier and with FedBuff (buffer 3): simulated
+   seconds, reports applied, late and lost, peak memory; FedBuff must
+   apply late reports and the barrier lose them. Then one 2-round run
+   stacking ``cafl+adam``, the PI controller, the deadline-aware knob
+   policy, ``paper+wire_mb+latency``, resource-aware sampling,
+   Bernoulli churn, deadline stragglers and ``wire_topk = 64``: one
+   top-k launch per compressed delta, every one on the warp kernel.
+6. serve: Gemma2-9B at full width and depth (42 layers, d 3584, vocab
    256,000, bf16; weights drawn on the card from
    ``torch.Generator(device="cuda").manual_seed(0)``) through
    ``launch.steps.make_prefill_step`` on one 8,192-token prompt (longer
@@ -85,12 +101,12 @@ before the final line:
    must take the tensor-core variant (``mma_bf16``). A reduction
    of the ``prefill_32k`` shape (B = 32, S = 32,768) in batch and
    length; widths unchanged.
-6. a ``kernel_off_path`` line for the limb entry of the masked sum (all
+7. a ``kernel_off_path`` line for the limb entry of the masked sum (all
    the summary's keys; no main path runs it, so its launches must be 0),
    the ``{"kernels": [...]}`` summary of the main paths' kernels, the
    nvidia-smi line, and the final ``{"ok": true, ...}`` line.
 
-Each path of phases 3, 4 and 5 (each engine run, the prefill) runs with
+Each path of phases 3 to 6 (each engine run, the prefill) runs with
 the launch counters zeroed just before it and read just after, and
 fails if a kernel of that path was never launched.
 
@@ -102,6 +118,7 @@ JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -129,6 +146,13 @@ ENGINE_ROUNDS = 3
 #: (tests/test_fl_aggregator.py::test_engine_masked_matches_sync)
 MASKED_TRAIN_ATOL = 1e-6
 MASKED_VAL_ATOL = 2e-3
+#: the fleet phase: rounds of the executor pair and of the stacked run,
+#: rounds of each wall-clock run, and batched against sequential at the
+#: reference's own bound
+#: (tests/test_fl_engine.py::test_sequential_and_batched_histories_match)
+FLEET_ROUNDS = 2
+ASYNC_ROUNDS = 3
+BATCHED_ATOL = 2e-3
 #: the masked-sum cases: clients x columns (1,900,800 = the full-width
 #: char-LM's parameter count, one round's fold)
 SUM_COHORTS = (1, 2, 6, 17)
@@ -1043,6 +1067,21 @@ def engine_rounds(method: str, aggregator: str, mode: str, history) -> None:
                                      "wire_mb_actual", "seconds")}})
 
 
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for the block. Every
+    output of the engine is written in full, so fresh tensors need no
+    pre-fill."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
 def drive_train(dev, out_dir: str):
     """``launch.train.main`` (FedAvg then CAFL-L, sync aggregator) on the
     card, in torch's default (nondeterministic) mode as a user runs it;
@@ -1121,10 +1160,7 @@ def drive_masked(dev, default_cafl):
     if cfg.vocab_size < ds.vocab_size:
         cfg = cfg.replace(vocab_size=ds.vocab_size)
     fl = get_fl_config().replace(rounds=ENGINE_ROUNDS)
-    fill = torch.utils.deterministic.fill_uninitialized_memory
-    torch.use_deterministic_algorithms(True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    try:
+    with deterministic():
         runs, launches = {}, {}
         for aggregator in ("sync", "masked"):
             engine = FederatedEngine(build(cfg), fl, ds, strategy="cafl",
@@ -1140,9 +1176,6 @@ def drive_masked(dev, default_cafl):
             emit({"phase": "engine", "runs": f"cafl {aggregator}",
                   "mode": "deterministic", "seconds": seconds,
                   "launches": launches[aggregator]})
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.utils.deterministic.fill_uninitialized_memory = fill
     sync, masked = runs["sync"], runs["masked"]
     for aggregator, counts in launches.items():
         check(counts["quantize_blocks"] > 0
@@ -1187,7 +1220,260 @@ def drive_masked(dev, default_cafl):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: Gemma2-9B prefill and decode through the serving steps
+# phase 5: the fleet: the batched executor, the wall clock, the other stacks
+# ---------------------------------------------------------------------------
+
+
+def device_kernels(fn, reps: int = 1):
+    """Run ``fn`` ``reps`` times under torch.profiler -> (wall seconds,
+    {kernel name: (launches, device us)}) for the CUDA kernels it ran,
+    averaged per repetition. A window in which the tracer delivered no
+    device activity at all (seen once on the card, between two windows
+    that traced) is taken once more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out = {}
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0):
+                out[e.key] = (e.count / reps, e.self_device_time_total / reps)
+        if out:
+            break
+    return wall / reps, out
+
+
+def charlm_fleet_setting():
+    """The full-width char-LM (vocab widened to the corpus), its corpus
+    and the paper's FL config (16 clients, 6 a round)."""
+    from repro_torch.configs import get_config, get_fl_config
+    from repro_torch.data import load_corpus
+
+    ds = load_corpus()
+    cfg = get_config("charlm-shakespeare")
+    if cfg.vocab_size < ds.vocab_size:
+        cfg = cfg.replace(vocab_size=ds.vocab_size)
+    return cfg, get_fl_config(), ds
+
+
+def executor_launches(engine, knobs) -> dict:
+    """One more LocalTrain round of the engine's executor for its first
+    ``clients_per_round`` clients at ``knobs`` cut to 2 local steps of
+    one microbatch (the profiler's post-processing grows with the
+    trace), under torch.profiler -> device kernel launches per client
+    microbatch and the device's busy share. Not a main-path run: its
+    launches are not counted."""
+    knobs = dataclasses.replace(knobs, s=2, grad_accum=1)
+    runner, executor = engine._runner_cache
+    fl = engine.fl
+    assignments = [(engine._client_info(c), knobs)
+                   for c in range(fl.clients_per_round)]
+    params = engine.params
+    wall, kernels = device_kernels(
+        lambda: executor.run_round(params, assignments))
+    check(kernels, "the profiler saw no device work in a LocalTrain round")
+    micro = fl.clients_per_round * knobs.s * knobs.grad_accum
+    busy_s = sum(us for _, us in kernels.values()) / 1e6
+    return {"knobs": knobs.as_dict(), "launches_per_microbatch":
+            sum(n for n, _ in kernels.values()) / micro,
+            "profiled_round_s": wall, "device_busy_share": busy_s / wall}
+
+
+def drive_executors(dev) -> dict:
+    """CAFL-L for FLEET_ROUNDS rounds with the sequential and with the
+    batched executor, both under deterministic algorithms, held to each
+    other at BATCHED_ATOL with equal knobs, participants and launch
+    counts; then each executor's launches per microbatch and busy share
+    under the profiler."""
+    from repro_torch.core import Knobs
+    from repro_torch.fl import FederatedEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+
+    cfg, fl, ds = charlm_fleet_setting()
+    fl = fl.replace(rounds=FLEET_ROUNDS)
+    runs, launches, seconds, engines = {}, {}, {}, {}
+    with deterministic():
+        for executor in ("sequential", "batched"):
+            engine = engines[executor] = FederatedEngine(
+                build(cfg), fl, ds, strategy="cafl", executor=executor,
+                device=dev)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            runs[executor] = engine.run().history
+            torch.cuda.synchronize()
+            seconds[executor] = time.perf_counter() - t0
+            launches[executor] = dict(ops.LAUNCHES)
+            engine_rounds("cafl", "sync", f"deterministic {executor}",
+                          runs[executor])
+    seq, bat = runs["sequential"], runs["batched"]
+    check(launches["batched"] == launches["sequential"],
+          f"batched launches {launches['batched']} != sequential "
+          f"{launches['sequential']}")
+    counts = launches["batched"]
+    check(counts["quantize_blocks"] > 0 and counts["dequantize_blocks"] > 0
+          and counts["flash_attention_bhsd"] > 0,
+          f"the executor runs launched no wire or flash kernel: {counts}")
+    for a, b in zip(seq, bat):
+        check(a.knobs == b.knobs and a.participants == b.participants,
+              f"round {a.round}: batched knobs / participants differ")
+        check(abs(a.val_loss - b.val_loss) <= BATCHED_ATOL
+              and abs(a.train_loss - b.train_loss) <= BATCHED_ATOL,
+              f"round {a.round}: batched losses ({b.val_loss}, "
+              f"{b.train_loss}) vs sequential ({a.val_loss}, "
+              f"{a.train_loss})")
+    profiled = {ex: executor_launches(engines[ex],
+                                      Knobs(**runs[ex][-1].knobs))
+                for ex in engines}
+    emit({"phase": "fleet_executors", "rounds": FLEET_ROUNDS,
+          "mode": "deterministic",
+          "seconds_per_round": {ex: [r.seconds for r in h]
+                                for ex, h in runs.items()},
+          "run_s": seconds, "launches": counts,
+          "max_val_loss_gap": max(abs(a.val_loss - b.val_loss)
+                                  for a, b in zip(seq, bat)),
+          "max_train_loss_gap": max(abs(a.train_loss - b.train_loss)
+                                    for a, b in zip(seq, bat)),
+          "atol": BATCHED_ATOL, "profiled_round": profiled})
+    return {k: launches["sequential"][k] + launches["batched"][k]
+            for k in counts}
+
+
+def drive_async(dev) -> dict:
+    """``examples/async_fleet.py``'s fleet at full width on the wall
+    clock: two tiers (half at compute_scale 2.0), deadline stragglers at
+    1.1 with jitter 0.2, the batched executor, ASYNC_ROUNDS rounds with
+    the sync barrier and with FedBuff (buffer 3). FedBuff must apply
+    late reports; the barrier loses them."""
+    from repro_torch.fl import (DeadlineStragglers, FedBuffAggregator,
+                                FederatedEngine, FleetClass, FleetDynamics,
+                                UniformSampler, make_fleet)
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+
+    cfg, fl, ds = charlm_fleet_setting()
+    fl = fl.replace(rounds=ASYNC_ROUNDS)
+    profiles, cp = make_fleet(fl, [
+        FleetClass("fast", fraction=0.5),
+        FleetClass("slow", fraction=0.5, compute_scale=2.0)])
+    total = {}
+    rows = {}
+    for name, agg in (("sync", "sync"),
+                      ("fedbuff", FedBuffAggregator(buffer_size=3))):
+        dyn = FleetDynamics(
+            sampler=UniformSampler(fl.clients_per_round),
+            stragglers=DeadlineStragglers.for_config(fl, deadline=1.1,
+                                                     jitter=0.2))
+        engine = FederatedEngine(build(cfg), fl, ds, strategy="fedavg",
+                                 executor="batched", profiles=profiles,
+                                 client_profiles=cp, dynamics=dyn,
+                                 aggregator=agg, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        hist = engine.run(time_mode="wall_clock").history
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        check(counts["flash_attention_bhsd"] > 0,
+              f"the {name} wall-clock run launched no flash kernel")
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        sim = [r.sim_time for r in hist]
+        check(all(math.isfinite(r.val_loss) for r in hist)
+              and sim == sorted(sim) and sim[0] > 0.0,
+              f"{name}: non-finite loss or a clock that ran back {sim}")
+        row = rows[name] = {
+            "phase": "fleet_async", "aggregator": name,
+            "time_mode": "wall_clock", "rounds": len(hist),
+            "sim_seconds": sim[-1],
+            "round_seconds": [r.round_seconds for r in hist],
+            "reports_applied": sum(r.reports_applied for r in hist),
+            "late": sum(len(r.late_arrivals) for r in hist),
+            "lost": sum(len(r.dropped) for r in hist),
+            "val_loss": [r.val_loss for r in hist],
+            "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "run_s": seconds, "launches": counts}
+        emit(row)
+    check(rows["fedbuff"]["late"] > 0,
+          "FedBuff applied no late report on the wall clock")
+    check(rows["sync"]["late"] == 0 and rows["sync"]["lost"] > 0,
+          f"the sync barrier should lose the slow tier's reports: {rows}")
+    return total
+
+
+def drive_stacked(dev) -> dict:
+    """One FLEET_ROUNDS-round run stacking the other pieces:
+    ``cafl+adam``, the PI controller, the deadline-aware knob policy,
+    ``paper+wire_mb+latency``, resource-aware sampling, Bernoulli churn,
+    deadline stragglers (so the latency dual and the deadline policy
+    have arrival times to read), ``wire_topk = 64`` and the batched
+    executor. Every top-k launch must take the warp kernel."""
+    from repro_torch.fl import FederatedEngine, make_dynamics
+    from repro_torch.kernels import cuda_lib, ops
+    from repro_torch.models import build
+
+    cfg, fl, ds = charlm_fleet_setting()
+    fl = fl.replace(rounds=FLEET_ROUNDS,
+                    constraints="paper+wire_mb+latency",
+                    dual_controller="pi", knob_policy="deadline_aware",
+                    wire_topk=64, executor="batched")
+    dyn = make_dynamics(fl, "resource_aware", "bernoulli", "deadline")
+    engine = FederatedEngine(build(cfg), fl, ds, strategy="cafl+adam",
+                             dynamics=dyn, device=dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = engine.run().history
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, topk = dict(ops.LAUNCHES), dict(cuda_lib.TOPK_VARIANTS)
+    engine_rounds("cafl+adam", "sync", "stacked", hist)
+    shipped = sum(len(r.participants) for r in hist if r.knobs.get("q"))
+    check(all(math.isfinite(r.val_loss) for r in hist)
+          and all(0.0 <= lam for r in hist for lam in r.duals.values()),
+          "the stacked run has a non-finite loss or a negative dual")
+    check(set(hist[-1].constraints) == {"energy", "comm", "memory", "temp",
+                                        "wire_mb", "latency"},
+          f"stacked constraints {sorted(hist[-1].constraints)}")
+    check(shipped > 0 and counts["quantize_topk_blocks"] == shipped
+          and counts["dequantize_blocks"] == shipped
+          and counts["quantize_blocks"] == 0,
+          f"{shipped} compressed deltas, launches {counts}")
+    check(topk["warp"] == shipped and topk["cta"] == 0,
+          f"top-k launches by kernel {topk}")
+    check(counts["flash_attention_bhsd"] > 0,
+          "the stacked run launched no flash kernel")
+    emit({"phase": "fleet_stack", "strategy": engine.strategy.name,
+          "rounds": len(hist), "run_s": seconds,
+          "knobs": [r.knobs for r in hist],
+          "participants": [r.participants for r in hist],
+          "dropped": [r.dropped for r in hist],
+          "deadline": dyn.stragglers.deadline,
+          "constraints": hist[-1].constraints, "launches": counts,
+          "topk_kernels": topk})
+    return counts
+
+
+def drive_fleet(dev) -> dict:
+    """The fleet phase's three paths, each with the counts zeroed just
+    before it and read just after -> their summed launch counts."""
+    t0 = time.perf_counter()
+    parts = [drive_executors(dev), drive_async(dev), drive_stacked(dev)]
+    emit({"phase": "fleet", "seconds": time.perf_counter() - t0})
+    return {k: sum(p.get(k, 0) for p in parts) for k in parts[0]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: Gemma2-9B prefill and decode through the serving steps
 # ---------------------------------------------------------------------------
 
 
@@ -1419,10 +1705,12 @@ def main() -> int:
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     det_launches = drive_masked(dev, default_cafl)
+    fleet_launches = drive_fleet(dev)
     serve_launches = {"flash_attention_bhsd": drive_serving(dev, smi)}
     for r in recs + [limbs_rec]:
         r["launches"] = (launches[r["name"]] + train_launches[r["name"]]
                          + det_launches[r["name"]]
+                         + fleet_launches[r["name"]]
                          + serve_launches.get(r["name"], 0))
         r["max_abs_err"] = worst[r["name"]]
     for r in recs:

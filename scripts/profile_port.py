@@ -37,6 +37,12 @@ Prints JSON lines:
   synchronize at each): eval, LocalTrain plus aggregation, accounting;
   the aggregator's ``submit`` / ``flush`` time is taken out of the
   middle part as ``aggregate_s``.
+- ``executor_round`` (last): one LocalTrain round of a full cohort (6
+  clients) at the given knobs with each executor, ``sequential`` then
+  ``batched`` (same-knob clients stacked under ``torch.func.vmap``):
+  host-clock seconds per round over 3 rounds after a warm-up one, and
+  under the profiler the device's busy share, the kernel launches per
+  client microbatch and the top kernels.
 
 The default knobs are those ``chip_smoke.py``'s second round runs at
 (q = 2 from the comm dual). ``chip_smoke.py`` checks the port; this
@@ -56,37 +62,9 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from chip_smoke import (FLASH_TIMED, SUM_TIMED, check, emit,  # noqa: E402
-                        flash_bound_ms, flash_inputs, full_width,
-                        nvidia_smi_line, smi_clocks, time_ms)
-
-
-def device_kernels(fn, reps: int = 1):
-    """Run ``fn`` ``reps`` times under torch.profiler -> (wall seconds,
-    {kernel name: (launches, device us)}) for the CUDA kernels it ran,
-    averaged per repetition. A window in which the tracer delivered no
-    device activity at all (seen once on the card, between two windows
-    that traced) is taken once more."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        out = {}
-        for e in prof.key_averages():
-            if (e.device_type == DeviceType.CUDA
-                    and e.self_device_time_total > 0):
-                out[e.key] = (e.count / reps, e.self_device_time_total / reps)
-        if out:
-            break
-    return wall / reps, out
+from chip_smoke import (FLASH_TIMED, SUM_TIMED, check,  # noqa: E402
+                        device_kernels, emit, flash_bound_ms, flash_inputs,
+                        full_width, nvidia_smi_line, smi_clocks, time_ms)
 
 
 def kernel_device_us(fn, names, reps: int = 20, what: str = "") -> float:
@@ -313,6 +291,56 @@ def profile_client(model, fl, ds, params, kn) -> dict:
                             for name, (n, t) in top]}
 
 
+def executor_rounds(model, fl, ds, params, kn, reps: int = 3) -> list:
+    """One cohort's LocalTrain round with each executor: host-clock
+    seconds per round, then the profiler's view of one more round."""
+    from repro_torch.core import calibrate
+    from repro_torch.core.client import ClientRunner
+    from repro_torch.core.freezing import count_params
+    from repro_torch.data import FederatedData
+    from repro_torch.fl import ClientInfo, DeviceProfile, make_executor
+
+    resources = calibrate(count_params(params), fl)
+    profile = DeviceProfile("default", fl.budgets, resources=resources)
+    micro = fl.clients_per_round * kn.s * kn.grad_accum
+    rows = []
+    for name in ("sequential", "batched"):
+        data = FederatedData(ds.train, fl.num_clients, seed=fl.seed)
+        runner = ClientRunner(model, fl, data, resources, device="cuda")
+        executor = make_executor(name, runner)
+        assignments = [(ClientInfo(c, profile, data.shard_size(c)), kn)
+                       for c in range(fl.clients_per_round)]
+
+        def run():
+            return executor.run_round(params, assignments)
+
+        run()                                               # warm up
+        walls = []
+        for _ in range(reps):
+            t0 = synced()
+            run()
+            walls.append(synced() - t0)
+        prof_wall, kernels = device_kernels(run)
+        busy_us = sum(t for _, t in kernels.values())
+        check(busy_us > 0, "the profiler saw no device time")
+        launches = sum(n for n, _ in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+        row = {"phase": "executor_round", "executor": name,
+               "knobs": kn.as_dict(), "clients": fl.clients_per_round,
+               "microbatches": micro, "round_s": walls,
+               "per_microbatch_ms": min(walls) / micro * 1e3,
+               "profiled_round_s": prof_wall,
+               "device_busy_s": busy_us / 1e6,
+               "device_busy_share": busy_us / 1e6 / prof_wall,
+               "kernel_launches": launches,
+               "launches_per_microbatch": launches / micro,
+               "top_kernels": [{"name": n[:80], "launches": c, "us": t}
+                               for n, (c, t) in top]}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     from repro_torch.core import Knobs
     from repro_torch.device import resolve_device
@@ -332,15 +360,17 @@ def main(argv=None) -> int:
     emit({"phase": "device", "nvidia_smi": nvidia_smi_line(),
           "name": torch.cuda.get_device_name(0)})
     cfg, fl, ds, model, leaves = full_width(dev)
-    emit({"phase": "kernel_device", "bits": 2, "k": 64,
-          "device_us": wire_kernel_device_us(leaves)})
     params = model.init(torch.Generator().manual_seed(fl.seed), dev).params()
     kn = Knobs(k=args.k, s=args.steps, b=args.b, q=args.q,
                grad_accum=args.grad_accum)
+    emit({"phase": "kernel_device", "bits": 2, "k": 64,
+          "device_us": wire_kernel_device_us(leaves)})
     emit(profile_client(model, fl, ds, params, kn))
     emit(masked_fold(dev))
     emit({"phase": "flash", "times": flash_times(dev)})
     engine_rounds(dev, args.engine_rounds)
+    # last: its sequential round traces ~89k kernels
+    executor_rounds(model, fl, ds, params, kn)
     return 0
 
 

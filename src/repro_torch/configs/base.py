@@ -7,11 +7,9 @@ softcaps, norm and MLP types, post-norms, embedding options) that the
 char-LM and Gemma2 read; the MoE / MLA / RG-LRU / xLSTM / frontend and
 encoder-decoder sub-configs are not ported yet (ROADMAP queue 1 item
 11), and ``block_pattern`` names block kinds that the port's stack
-refuses. ``FLConfig`` carries the engine's one choice that has two
-ported values, the aggregator; the reference's other engine fields
-(executor, server optimizer, constraint stack, dual overrides, time
-mode, horizon) name pieces the port has one value of or none yet
-(ROADMAP queues 7 and 8), so they are not fields here.
+refuses. ``FLConfig`` carries every field of the reference's, engine
+choices included (executor, aggregator, server optimizer, constraint
+stack, dual overrides, time mode, horizon).
 """
 from __future__ import annotations
 
@@ -79,6 +77,16 @@ class Budgets:
     memory: float = 0.26
     temp: float = 1.00
 
+    def scaled(self, factor: float = 1.0, *, energy: float = 1.0,
+               comm: float = 1.0, memory: float = 1.0, temp: float = 1.0
+               ) -> "Budgets":
+        """Device-class budgets: ``scaled(0.5)`` is a fleet tier with half
+        the allowance on every resource; keyword factors scale one axis."""
+        return Budgets(energy=self.energy * factor * energy,
+                       comm_mb=self.comm_mb * factor * comm,
+                       memory=self.memory * factor * memory,
+                       temp=self.temp * factor * temp)
+
 
 @dataclass(frozen=True)
 class DualConfig:
@@ -123,12 +131,41 @@ class FLConfig:
     token_budget: bool = True
     # Eq. 8 rounding: "ceil" (paper) | "clamped" (floor, >= 1)
     token_preservation: str = "ceil"
+    # --- engine (repro_torch.fl) ---
+    # client execution backend: "sequential" | "batched" (vmapped clients)
+    executor: str = "sequential"
+    # server-update policy: "sync" (round barrier) | "fedbuff" (buffered
+    # async) | "staleness" (late reports discounted, not discarded) |
+    # "masked" (secure-aggregation simulation)
+    aggregator: str = "sync"
+    # server-side optimizer on the aggregated pseudo-gradient
+    # ("" = plain averaging; "adam" / "momentum" = FedAdam / FedAvgM)
+    server_opt: str = ""
+    server_lr: float = 0.1
     # sparse wire format: keep the k largest-magnitude codes per
     # 256-value block (None = dense; only active at q > 0)
     wire_topk: Any = None
-    # server-update policy (repro_torch.fl): "sync" (round barrier) |
-    # "masked" (secure-aggregation simulation)
-    aggregator: str = "sync"
+    # --- constraint stack (repro_torch.constraints), CAFLL only ---
+    # which resources are budgeted: "paper" | "paper+wire_mb" style
+    # registry specs | a sequence of names / Constraint instances | a
+    # ConstraintSet
+    constraints: Any = "paper"
+    # dual-ascent law per constraint: "deadzone" (paper Eq. 4) |
+    # "adaptive" | "pi" | a DualController
+    dual_controller: Any = "deadzone"
+    # duals -> knobs mapping: "paper" (Eq. 5-7) | "deadline_aware" | a
+    # KnobPolicy instance
+    knob_policy: Any = "paper"
+    # per-constraint DualConfig overrides, e.g. {"latency": {"eta": 1.0}}
+    # (None / {} = every constraint shares ``duals``)
+    dual_overrides: Any = None
+    # --- virtual wall clock (repro_torch.fl.clock) ---
+    # "rounds": abstract rounds, the clock is accounting only;
+    # "wall_clock": rounds begin when the previous barrier or buffer
+    # event completes and late reports land at their arrival time
+    time_mode: str = "rounds"
+    # simulated-seconds budget for wall-clock runs (None = round count)
+    horizon_seconds: Optional[float] = None
 
     def replace(self, **kw) -> "FLConfig":
         return dataclasses.replace(self, **kw)

@@ -2,10 +2,13 @@
 
 A ``Constraint`` names one dual variable, measures a client report's
 usage of it, reads its bound from a profile's ``Budgets`` and says which
-Eq. 5-7 dual group (``knob_group``) its multiplier joins. The port has
-the paper's four Appendix-A.1 proxies (energy, comm, memory, temp); the
-reference's registered extras (``wire_mb``, ``energy_true``, ``latency``)
-raise ``NotImplementedError`` by name (ROADMAP queue 8).
+Eq. 5-7 dual group (``knob_group``) its multiplier joins. Registered by
+name: the paper's four Appendix-A.1 proxies (energy, comm, memory,
+temp) and three more, as in the reference: ``wire_mb`` (the measured
+wire bytes, held to the comm budget, in the comm group),
+``energy_true`` (energy with the grad-accum microbatches Eq. 8 adds, in
+the energy group) and ``latency`` (the client's simulated arrival time
+against one deadline unit; observational, no group).
 """
 from __future__ import annotations
 
@@ -16,9 +19,6 @@ from repro_torch.configs.base import Budgets
 
 # the Eq. 5-7 dual groups (== the paper's four constraints)
 KNOB_GROUPS = ("energy", "comm", "memory", "temp")
-
-#: registered in ``repro.constraints``, not ported yet
-_NOT_PORTED = ("wire_mb", "energy_true", "latency")
 
 
 @dataclass(frozen=True)
@@ -51,6 +51,11 @@ class ConstraintReport:
     lam: float
     violated: bool
 
+    def as_dict(self) -> Dict[str, float]:
+        return {"usage": self.usage, "budget": self.budget,
+                "ratio": self.ratio, "lam": self.lam,
+                "violated": self.violated}
+
 
 class ConstraintSet:
     """An ordered collection of constraints, shared by the strategy, the
@@ -75,6 +80,9 @@ class ConstraintSet:
     def measure(self, report: Any) -> Dict[str, float]:
         """Per-client measurement dict, keyed by constraint name."""
         return {c.name: float(c.measure(report)) for c in self.constraints}
+
+    def budgets_dict(self, budgets: Budgets) -> Dict[str, float]:
+        return {c.name: float(c.budget_of(budgets)) for c in self.constraints}
 
     def ratios(self, usage: Dict[str, float],
                budgets: Budgets) -> Dict[str, float]:
@@ -131,6 +139,15 @@ register_constraint("energy", lambda: _proxy("energy", lambda b: b.energy))
 register_constraint("comm", lambda: _proxy("comm", lambda b: b.comm_mb))
 register_constraint("memory", lambda: _proxy("memory", lambda b: b.memory))
 register_constraint("temp", lambda: _proxy("temp", lambda b: b.temp))
+register_constraint("wire_mb", lambda: Constraint(
+    name="wire_mb", measure=lambda rep: rep.wire_mb_actual,
+    budget_of=lambda b: b.comm_mb, knob_group="comm"))
+register_constraint("energy_true", lambda: Constraint(
+    name="energy_true", measure=lambda rep: rep.energy_true,
+    budget_of=lambda b: b.energy, knob_group="energy"))
+register_constraint("latency", lambda: Constraint(
+    name="latency", measure=lambda rep: rep.arrival_time,
+    budget_of=lambda b: 1.0, knob_group=None))
 
 
 ConstraintSpec = Union[str, Constraint, ConstraintSet,
@@ -157,9 +174,6 @@ def make_constraints(spec: ConstraintSpec = "paper") -> ConstraintSet:
             out.extend(paper_constraints())
         elif item in CONSTRAINT_REGISTRY:
             out.append(CONSTRAINT_REGISTRY[item]())
-        elif item in _NOT_PORTED:
-            raise NotImplementedError(
-                f"constraint {item!r} is not ported yet (ROADMAP queue 8)")
         else:
             raise ValueError(
                 f"unknown constraint {item!r}; options: paper, "

@@ -3,14 +3,22 @@
 The engine turns every finished client into a ``ClientReport`` and feeds
 it to an ``Aggregator``, which decides when reports are combined into
 ``ServerUpdate``s (``submit`` per arrival, ``flush`` at the round
-barrier). The port has the reference's ``SyncAggregator`` (the paper's
-barrier, the default) and ``MaskedSumAggregator`` (pairwise-mask secure
-aggregation); FedBuff and the staleness-weighted barrier are not ported
-yet (ROADMAP queue 8) and ``make_aggregator`` raises for them.
+barrier, ``finalize`` at run end). The policies, as in the reference:
+
+    SyncAggregator        the paper's barrier (the default)
+    FedBuffAggregator     buffered async: apply every ``buffer_size``
+                          arrivals, mid-round, with staleness-discounted
+                          deltas; deadline-missers deliver late
+    StalenessWeighted-    the barrier, with late reports folded into a
+    Aggregator            later round under a ``StalenessPolicy``
+                          discount
+    MaskedSumAggregator   pairwise-mask secure aggregation
 
 Every policy folds its buffered reports in canonical report order
 (``(round_trained, arrival_time, client_id)``), so the applied update is
-a function of the report set, never of delivery order.
+a function of the report set, never of delivery order. A discount is
+applied on the deltas' device, as a 0-d fp32 tensor (the reference's
+weak-typed scalar).
 """
 from __future__ import annotations
 
@@ -71,12 +79,86 @@ class ServerUpdate:
     mean_staleness: float = 0.0
 
 
+class StalenessPolicy:
+    """Maps a report's staleness (rounds late) to a discount in (0, 1],
+    non-increasing in staleness and 1.0 at 0."""
+
+    name = "base"
+
+    def discount(self, staleness: int) -> float:
+        raise NotImplementedError
+
+
+class PolynomialStaleness(StalenessPolicy):
+    """FedBuff's s(tau) = (1 + tau)^(-alpha); alpha = 0 disables."""
+
+    name = "polynomial"
+
+    def __init__(self, alpha: float = 0.5):
+        if alpha < 0.0:
+            raise ValueError(f"alpha must be >= 0, got {alpha}")
+        self.alpha = alpha
+
+    def discount(self, staleness: int) -> float:
+        if staleness < 0:
+            raise ValueError(f"negative staleness {staleness}")
+        return float((1.0 + staleness) ** (-self.alpha))
+
+
+class ConstantStaleness(StalenessPolicy):
+    """Fresh reports count fully; any late report a constant factor."""
+
+    name = "constant"
+
+    def __init__(self, factor: float = 0.5):
+        if not 0.0 < factor <= 1.0:
+            raise ValueError(f"factor must be in (0, 1], got {factor}")
+        self.factor = factor
+
+    def discount(self, staleness: int) -> float:
+        if staleness < 0:
+            raise ValueError(f"negative staleness {staleness}")
+        return 1.0 if staleness == 0 else self.factor
+
+
+def make_staleness_policy(spec) -> StalenessPolicy:
+    if isinstance(spec, StalenessPolicy):
+        return spec
+    name = spec.lower()
+    if name in ("polynomial", "poly"):
+        return PolynomialStaleness()
+    if name == "constant":
+        return ConstantStaleness()
+    if name == "none":
+        return PolynomialStaleness(alpha=0.0)
+    raise ValueError(f"unknown staleness policy {spec!r}; "
+                     f"options: polynomial, constant, none")
+
+
+def _scale_delta(delta: Dict[str, torch.Tensor], factor: float
+                 ) -> Dict[str, torch.Tensor]:
+    """``delta * factor`` in fp32 on the delta's device (the factor as a
+    0-d fp32 tensor); a factor of 1 returns the delta itself."""
+    if factor == 1.0:
+        return delta
+    out = {}
+    for name, leaf in delta.items():
+        f = torch.tensor(np.float32(factor), device=leaf.device)
+        out[name] = leaf.to(torch.float32) * f
+    return out
+
+
 class Aggregator:
     """Server-update policy; the engine drives one instance per run:
     ``reset(combine)``, then per round ``begin_round(rnd, cohort)``,
-    ``submit(report)`` per arrival and ``flush(rnd)`` at the barrier.
-    ``accepts_late`` / ``applies_mid_round`` mark the asynchronous
-    policies, none of which is ported."""
+    ``submit(report)`` per arrival and ``flush(rnd)`` at the barrier,
+    and ``finalize(rnd)`` once at run end.
+
+    ``accepts_late`` tells the engine to execute deadline-missers and
+    deliver their reports when their simulated clock lands;
+    ``applies_mid_round`` marks a policy whose ``submit`` can emit an
+    update before the barrier (in wall-clock mode that update ends the
+    round)."""
 
     name = "base"
     accepts_late = False
@@ -146,6 +228,106 @@ class SyncAggregator(Aggregator):
 
     def state_snapshot(self):
         return {**super().state_snapshot(), "buffered": len(self._buf)}
+
+
+class StalenessWeightedAggregator(Aggregator):
+    """The barrier, minus the discard: deadline-missers deliver in the
+    round their clock lands in and fold into that round's update under a
+    ``StalenessPolicy`` discount. ``mode="scale"`` multiplies the late
+    delta by the discount (works under any combine); ``mode="weight"``
+    multiplies its example-count weight (bites only with weighted
+    combines)."""
+
+    name = "staleness"
+    accepts_late = True
+
+    def __init__(self, policy: Optional[StalenessPolicy] = None,
+                 mode: str = "scale"):
+        super().__init__()
+        if mode not in ("scale", "weight"):
+            raise ValueError(f"mode must be 'scale' or 'weight', got "
+                             f"{mode!r}")
+        self.policy = policy or PolynomialStaleness()
+        self.mode = mode
+        self._buf: List[ClientReport] = []
+
+    def reset(self, combine):
+        super().reset(combine)
+        self._buf = []
+
+    def submit(self, report):
+        self._buf.append(report)
+        return None
+
+    def flush(self, rnd):
+        if not self._buf:
+            return None
+        reports, self._buf = self._buf, []
+        reports = canonical_order(reports)
+        discounts = [self.policy.discount(r.staleness) for r in reports]
+        if self.mode == "scale":
+            deltas = [_scale_delta(r.delta, d)
+                      for r, d in zip(reports, discounts)]
+            weights = [r.weight for r in reports]
+        else:
+            deltas = [r.delta for r in reports]
+            weights = [r.weight * d for r, d in zip(reports, discounts)]
+        return self._emit(rnd, reports, self._combine(deltas, weights))
+
+    def state_snapshot(self):
+        return {**super().state_snapshot(), "buffered": len(self._buf),
+                "policy": self.policy.name, "mode": self.mode}
+
+
+class FedBuffAggregator(Aggregator):
+    """Buffered asynchronous aggregation (FedBuff): once ``buffer_size``
+    reports have arrived the server applies their combined,
+    staleness-discounted update at once, mid-round. The buffer persists
+    across rounds (``flush`` does nothing); ``finalize`` applies a
+    partial buffer at run end. Staleness is measured when the buffer is
+    applied, so a report that waited in it keeps ageing."""
+
+    name = "fedbuff"
+    accepts_late = True
+    applies_mid_round = True
+
+    def __init__(self, buffer_size: int = 4,
+                 policy: Optional[StalenessPolicy] = None):
+        super().__init__()
+        if buffer_size < 1:
+            raise ValueError(f"buffer_size must be >= 1, got {buffer_size}")
+        self.buffer_size = buffer_size
+        self.policy = policy or PolynomialStaleness()
+        self._buf: List[ClientReport] = []
+
+    def reset(self, combine):
+        super().reset(combine)
+        self._buf = []
+
+    def submit(self, report):
+        self._buf.append(report)
+        if len(self._buf) < self.buffer_size:
+            return None
+        return self._apply_buffer(report.round_submitted)
+
+    def finalize(self, rnd):
+        if not self._buf:
+            return None
+        return self._apply_buffer(rnd)
+
+    def _apply_buffer(self, rnd):
+        reports, self._buf = self._buf, []
+        reports = canonical_order(reports)
+        for r in reports:
+            r.staleness = max(r.staleness, rnd - r.round_trained)
+        deltas = [_scale_delta(r.delta, self.policy.discount(r.staleness))
+                  for r in reports]
+        delta = self._combine(deltas, [r.weight for r in reports])
+        return self._emit(rnd, reports, delta)
+
+    def state_snapshot(self):
+        return {**super().state_snapshot(), "buffered": len(self._buf),
+                "buffer_size": self.buffer_size, "policy": self.policy.name}
 
 
 class MaskedSumAggregator(Aggregator):
@@ -299,21 +481,25 @@ class MaskedSumAggregator(Aggregator):
                 "masks_reconstructed": self._reconstructed}
 
 
-AGGREGATORS = ("sync", "masked")
+AGGREGATORS = ("sync", "fedbuff", "staleness", "masked")
 
 
 def make_aggregator(spec, fl=None, **kw) -> Aggregator:
-    """Resolve an aggregator spec: an instance passes through; "sync" or
-    "masked" (aliases "masked_sum", "secagg") name a policy."""
+    """Resolve an aggregator spec: an instance passes through; strings
+    name a policy ("sync", "fedbuff", "staleness", "masked"). ``fl``
+    sizes FedBuff's default buffer at half the sampled cohort."""
     if isinstance(spec, Aggregator):
         return spec
     name = spec.lower()
     if name == "sync":
         return SyncAggregator(**kw)
+    if name == "fedbuff":
+        if "buffer_size" not in kw and fl is not None:
+            kw["buffer_size"] = max(2, (fl.clients_per_round + 1) // 2)
+        return FedBuffAggregator(**kw)
+    if name in ("staleness", "staleness_weighted"):
+        return StalenessWeightedAggregator(**kw)
     if name in ("masked", "masked_sum", "secagg"):
         return MaskedSumAggregator(**kw)
-    if name in ("fedbuff", "staleness", "staleness_weighted"):
-        raise NotImplementedError(
-            f"aggregator {spec!r} is not ported yet (ROADMAP queue 8)")
     raise ValueError(f"unknown aggregator {spec!r}; "
                      f"options: {', '.join(AGGREGATORS)}")

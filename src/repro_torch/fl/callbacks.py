@@ -68,6 +68,8 @@ class LoggingCallback(RoundCallback):
                      f" stale={r.mean_staleness:.2f}")
         if r.updates_applied != 1:   # not the plain one-barrier round
             line += f" upd={r.updates_applied}"
+        if getattr(engine, "time_mode", "rounds") == "wall_clock":
+            line += f" sim={r.sim_time:.2f}(+{r.round_seconds:.2f})"
         self.log(line)
 
 

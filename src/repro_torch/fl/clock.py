@@ -1,4 +1,4 @@
-"""Virtual wall clock: simulated time kept beside the round loop.
+"""Virtual wall clock: simulated time as an engine axis.
 
     SimClock        monotone virtual time, advanced on events, every
                     advance logged
@@ -6,20 +6,26 @@
                     ``KnobRoundTime`` derives client compute times from
                     the knobs (time 1.0 = one baseline round of
                     ``s_base * b_base`` sequences on calibration silicon)
+    EventQueue      in-flight late reports (``TimedReport``), ordered
+                    by arrival time, then stamping order
 
-The port runs the reference's ``time_mode="rounds"``, where the clock is
-pure accounting (``RoundRecord.sim_time`` / ``round_seconds``).
-``"wall_clock"`` and the reference's ``EventQueue`` of in-flight late
-reports that it needs are not ported yet (ROADMAP queue 8).
+In ``time_mode="rounds"`` the clock is pure accounting
+(``RoundRecord.sim_time`` / ``round_seconds``). In ``"wall_clock"`` a
+barrier round lasts until its survivors reported (or the deadline, when
+someone missed it), a buffered-async round ends at its first mid-round
+server update, and a late report lands at its simulated arrival time.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.policy import Knobs
 from repro_torch.fl.device import ClientInfo
+
+TIME_MODES = ("rounds", "wall_clock")
 
 
 class SimClock:
@@ -115,6 +121,85 @@ class KnobRoundTime(RoundTimeModel):
         if dur <= 0.0:
             dur = self.idle_seconds
         return dur + self.server_seconds
+
+
+@dataclass(frozen=True)
+class TimedReport:
+    """One in-flight client report on the wall-clock event queue.
+    ``seq`` is the stamping order, which resolves simultaneous arrivals
+    (a homogeneous cohort delivers in cohort order, as in rounds mode);
+    ``tie`` sits between ``arrival`` and ``seq`` in the sort key and is
+    0.0 unless a caller stamps its own tie-breaks."""
+    arrival: float                # absolute simulated arrival time
+    report: object                # the ClientReport to deliver
+    seq: int = 0                  # tie-break: stamping order
+    tie: float = 0.0              # caller-chosen tie-break
+
+    def sort_key(self):
+        return (self.arrival, self.tie, self.seq)
+
+
+@dataclass
+class EventQueue:
+    """Arrival-ordered pending reports: ``push`` never drops,
+    ``pop_until`` returns every event at or before the cutoff exactly
+    once, ``drain`` empties the queue."""
+
+    _items: List[TimedReport] = field(default_factory=list)
+    _seq: int = 0
+
+    def stamp(self, arrival: float, report) -> TimedReport:
+        """Mint an ordered event without queueing it. A NaN or infinite
+        arrival raises: it would mis-sort and never be delivered."""
+        arrival = float(arrival)
+        if not math.isfinite(arrival):
+            raise ValueError(
+                f"event arrival time must be finite, got {arrival!r}; "
+                f"NaN/inf arrivals silently mis-sort the event queue")
+        ev = TimedReport(arrival, report, self._seq)
+        self._seq += 1
+        return ev
+
+    def push(self, arrival: float, report) -> None:
+        """Queue a report for delivery at ``arrival`` (>= 0)."""
+        if float(arrival) < 0.0:
+            raise ValueError(
+                f"event arrival time must be >= 0, got {arrival!r}; "
+                f"simulated time starts at 0.0 and never runs backwards")
+        self._items.append(self.stamp(arrival, report))
+
+    def push_event(self, ev: TimedReport) -> None:
+        self._items.append(ev)
+
+    def pop_until(self, cutoff: float) -> List[TimedReport]:
+        due = sorted((e for e in self._items if e.arrival <= cutoff),
+                     key=TimedReport.sort_key)
+        self._items = [e for e in self._items if e.arrival > cutoff]
+        return due
+
+    def drain(self) -> List[TimedReport]:
+        out = sorted(self._items, key=TimedReport.sort_key)
+        self._items = []
+        return out
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+
+def seconds_to_target(result, target: float) -> Optional[float]:
+    """First simulated time at which a run's val loss reached ``target``,
+    or None. A record's ``val_loss`` is measured at round start, so a hit
+    charges the round's start ``sim_time - round_seconds``; the final
+    record's loss is re-evaluated after the last update and charges the
+    full clock."""
+    history = result.history
+    if not history:
+        return None
+    for r in history[:-1]:
+        if r.val_loss <= target:
+            return r.sim_time - r.round_seconds
+    last = history[-1]
+    return last.sim_time if last.val_loss <= target else None
 
 
 def make_round_time(spec, fl: FLConfig) -> RoundTimeModel:

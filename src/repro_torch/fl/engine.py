@@ -1,19 +1,36 @@
 """The federated engine (Algorithm 1 as control flow), on one device.
 
 ``FederatedEngine`` wires the replaceable pieces of the reference's
-engine: a strategy (knobs, delta combination, duals), a client executor,
-device profiles, fleet dynamics, an aggregator (when reports become
-server updates) and round callbacks. Every finished client becomes a
-``ClientReport`` fed to ``aggregator.submit``; ``flush`` closes the
-round's barrier. Constraint accounting folds the reports in canonical
-order, so the duals are a function of the report set.
+engine: a strategy (knobs, delta combination, duals), a client executor
+(sequential, or batched over same-knob clients), device profiles, fleet
+dynamics (availability, sampling, stragglers), an aggregator (when
+reports become server updates) and round callbacks. Every finished
+client becomes a ``ClientReport`` fed to ``aggregator.submit``. With an
+``accepts_late`` aggregator, clients that miss the deadline still train,
+and their report is delivered later with ``staleness = delivery_round -
+training_round``; only reports that can never land (no clock, a barrier
+aggregator, past the horizon) feed the dropout ledger. At run end
+``Aggregator.finalize`` drains a partial buffer. Constraint accounting
+folds the reports in canonical order, so the duals are a function of
+the report set.
+
+Two time modes, as in the reference (``fl.clock``):
+
+    "rounds"      the loop advances in abstract rounds; a late report
+                  lands ``ceil(t / deadline) - 1`` rounds after its own
+                  (``pending``), and the clock is accounting only
+    "wall_clock"  a ``SimClock`` advances on events: a barrier round
+                  lasts until its survivors reported (or the deadline),
+                  a buffered-async round ends at its first mid-round
+                  update, late reports land at their arrival time
+                  (``EventQueue``), and ``horizon_seconds`` can replace
+                  the round count
 
 The engine runs on ``device`` (``None`` -> ``"cuda"``, which raises
 without a card): parameters, client training, eval and the masked-sum
-fold all live there. It runs the reference's ``time_mode="rounds"``,
-where the virtual clock is accounting only; wall-clock mode, horizons
-and aggregators that accept late reports are not ported yet (ROADMAP
-queue 8).
+fold all live there. Once an update is applied, the engine drops its
+reports' deltas (callbacks see them in ``on_server_update`` first), so
+late reports hold device memory only while in flight.
 """
 from __future__ import annotations
 
@@ -37,7 +54,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fl.aggregator import (Aggregator, ClientReport, ServerUpdate,
                                        canonical_order, make_aggregator)
 from repro_torch.fl.callbacks import RoundCallback
-from repro_torch.fl.clock import RoundTimeModel, SimClock, make_round_time
+from repro_torch.fl.clock import (TIME_MODES, EventQueue, RoundTimeModel,
+                                  SimClock, make_round_time)
 from repro_torch.fl.device import (DEFAULT_PROFILE, ClientInfo, DeviceProfile,
                                    uniform_fleet)
 from repro_torch.fl.dynamics import FleetDynamics, RoundPlan
@@ -61,6 +79,7 @@ class FederatedEngine:
                  resources: Optional[ResourceModel] = None,
                  init_duals: Optional[DualState] = None,
                  round_time: Union[str, RoundTimeModel, None] = None,
+                 event_queue: Optional[Callable[[], EventQueue]] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.model = model
@@ -70,7 +89,7 @@ class FederatedEngine:
             strategy = fl.method
         self.strategy = (make_strategy(strategy, fl, init_duals=init_duals)
                          if isinstance(strategy, str) else strategy)
-        self._executor_spec: ExecutorSpec = executor or "sequential"
+        self._executor_spec: ExecutorSpec = executor or fl.executor
         if profiles is None:
             profiles, client_profiles = uniform_fleet(fl)
         if client_profiles is None or len(client_profiles) != fl.num_clients:
@@ -80,18 +99,16 @@ class FederatedEngine:
         self._client_profiles = list(client_profiles)
         self.dynamics = dynamics or FleetDynamics.default(fl)
         self.aggregator = make_aggregator(aggregator or fl.aggregator, fl)
-        if self.aggregator.accepts_late or self.aggregator.applies_mid_round:
-            raise NotImplementedError(
-                f"aggregator {self.aggregator.name!r} takes late or "
-                f"mid-round reports; asynchronous delivery is not ported "
-                f"yet (ROADMAP queue 8)")
         self.callbacks = list(callbacks)
         self._base_resources = resources
         self.round_time = make_round_time(round_time, fl)
+        # wall-clock event-queue factory (None: a plain EventQueue)
+        self.event_queue_factory = event_queue
         self.data = FederatedData(dataset.train, fl.num_clients, seed=fl.seed,
                                   noniid_alpha=fl.noniid_alpha)
         self.params = None            # live during run(); callbacks read it
         self.profiles: Dict[str, DeviceProfile] = {}
+        self.time_mode = fl.time_mode  # resolved per run()
         self.clock: Optional[SimClock] = None
         self._runner_cache = None     # (runner, executor)
 
@@ -147,13 +164,43 @@ class FederatedEngine:
                             usage=usage, energy_true=energy)
 
     # ------------------------------------------------------------------
-    def run(self, rounds: Optional[int] = None,
-            init_params=None) -> FLResult:
-        """Run the federated loop for ``rounds`` (default ``fl.rounds``)
-        rounds from ``init_params`` (a ``ParamTree`` or parameter dict;
-        default: fresh weights from ``fl.seed``)."""
+    def run(self, rounds: Optional[int] = None, init_params=None,
+            time_mode: Optional[str] = None,
+            horizon_seconds: Optional[float] = None) -> FLResult:
+        """Run the federated loop from ``init_params`` (a ``ParamTree`` or
+        parameter dict; default: fresh weights from ``fl.seed``).
+
+        ``time_mode`` overrides ``fl.time_mode``. A ``horizon_seconds``
+        budget (argument or ``fl.horizon_seconds``) implies wall-clock
+        mode and replaces the round count (an explicit ``rounds`` still
+        caps it); late reports that could only land past it are lost.
+        An explicit ``time_mode="rounds"`` ignores the config's horizon,
+        and an explicit horizon with a mode other than wall clock
+        raises."""
         fl = self.fl
+        if time_mode is None:
+            if horizon_seconds is None:
+                horizon_seconds = fl.horizon_seconds
+            time_mode = ("wall_clock" if horizon_seconds is not None
+                         else fl.time_mode)
+        else:
+            if horizon_seconds is None and time_mode == "wall_clock":
+                horizon_seconds = fl.horizon_seconds
+            if horizon_seconds is not None and time_mode != "wall_clock":
+                raise ValueError(
+                    f"horizon_seconds requires time_mode='wall_clock', "
+                    f"got {time_mode!r}")
+        if time_mode not in TIME_MODES:
+            raise ValueError(f"unknown time_mode {time_mode!r}; "
+                             f"options: {', '.join(TIME_MODES)}")
+        wall = time_mode == "wall_clock"
+        self.time_mode = time_mode
+        explicit_rounds = rounds is not None
         rounds = rounds or fl.rounds
+        # a horizon bounds the run in simulated seconds; the backstop
+        # only stops a zero-length-round bug from spinning forever
+        max_rounds = (rounds if horizon_seconds is None or explicit_rounds
+                      else 100_000)
         rng = np.random.default_rng(fl.seed)
         params, runner, executor = self._setup(init_params)
         evaluate = make_eval_fn(self.model, self.dataset, fl,
@@ -173,26 +220,74 @@ class FederatedEngine:
         fleet = [self._client_info(c) for c in range(fl.num_clients)]
         clock = self.clock = SimClock()
         rtm = self.round_time
+        server_cost = getattr(rtm, "server_seconds", 0.0)
+        # in-flight late reports. rounds mode: delivery round -> reports
+        # and client -> delivery round; wall clock: an arrival-time queue
+        # and the busy set. A straggler is still training until its
+        # report lands, so it is off the sampling roster meanwhile.
+        pending: Dict[int, List[ClientReport]] = {}
+        busy_until: Dict[int, int] = {}
+        pending_q = (self.event_queue_factory()
+                     if self.event_queue_factory is not None
+                     else EventQueue())
+        busy: set = set()
 
         self.params = params
         self._emit("on_train_start")
         t = 0
-        for t in range(1, rounds + 1):
+        while t < max_rounds:
+            if wall and horizon_seconds is not None and result.history \
+                    and clock.now >= horizon_seconds:
+                break
+            t += 1
             t0 = time.time()
             round_start = clock.now
             self._emit("on_round_start", t)
             val_loss = evaluate(params)
 
             # --- round composition: gate, sample, deadline -------------
+            if wall:
+                roster = ([ci for ci in fleet if ci.client_id not in busy]
+                          if busy else fleet)
+            else:
+                # sorted: expiry must not depend on delivery order
+                for cid in sorted(c for c, due in busy_until.items()
+                                  if due < t):
+                    del busy_until[cid]
+                roster = ([ci for ci in fleet
+                           if ci.client_id not in busy_until]
+                          if busy_until else fleet)
             avail, clients = dynamics.compose(
-                t, fleet, rng, self.strategy.duals_snapshot())
+                t, roster, rng, self.strategy.duals_snapshot())
             base_knobs = self.strategy.configure_round(t, clients)
             knobs = dynamics.adjust_knobs(clients, base_knobs)
             surv_idx, drop_idx, times = dynamics.finish(t, clients, knobs,
                                                         rng)
+            # the deadline in force during this round (a knob policy may
+            # move it in observe_round, for the next round)
             deadline = getattr(dynamics.stragglers, "deadline", None)
-            # no ported aggregator takes late reports: every miss is lost
-            lost_idx = list(drop_idx)
+            # deadline-missers: late (the report still lands, if the
+            # aggregator takes it and the run is still going) or lost
+            late_idx: List[int] = []
+            lost_idx: List[int] = []
+            due_round: Dict[int, int] = {}
+            if wall:
+                for i in drop_idx:
+                    if agg.accepts_late and times and (
+                            horizon_seconds is None
+                            or round_start + times[i] <= horizon_seconds):
+                        late_idx.append(i)
+                    else:
+                        lost_idx.append(i)
+            else:
+                for i in drop_idx:
+                    delay = (dynamics.stragglers.late_rounds(times[i])
+                             if agg.accepts_late and times else None)
+                    if delay is not None and t + delay <= rounds:
+                        late_idx.append(i)
+                        due_round[i] = t + delay
+                    else:
+                        lost_idx.append(i)
             survivors = [clients[i] for i in surv_idx]
             plan = RoundPlan(
                 round=t,
@@ -200,21 +295,37 @@ class FederatedEngine:
                 sampled=tuple(ci.client_id for ci in clients),
                 survivors=tuple(ci.client_id for ci in survivors),
                 dropped=tuple(clients[i].client_id for i in drop_idx),
-                times=tuple(times))
+                times=tuple(times),
+                late=tuple(clients[i].client_id for i in late_idx))
             self._emit("on_round_composed", plan)
             if lost_idx:
                 self.strategy.on_dropout([clients[i] for i in lost_idx])
             agg.begin_round(t, clients)
 
-            # --- LocalTrain, then the barrier ---------------------------
+            # --- LocalTrain: survivors report now, late clients' reports
+            # are queued for when their clock lands ---------------------
+            exec_idx = list(surv_idx) + late_idx
             outs = (executor.run_round(
-                params, [(clients[i], knobs[i]) for i in surv_idx])
-                if surv_idx else [])
-            inbox = [self._report(clients[i], knobs[i], base_knobs[i], o, t,
-                                  times[i] if times else 0.0)
-                     for i, o in zip(surv_idx, outs)]
+                params, [(clients[i], knobs[i]) for i in exec_idx])
+                if exec_idx else [])
+            reports = {
+                i: self._report(clients[i], knobs[i], base_knobs[i], o, t,
+                                times[i] if times else 0.0)
+                for i, o in zip(exec_idx, outs)}
+            if not wall:
+                for i in late_idx:
+                    pending.setdefault(due_round[i], []).append(reports[i])
+                    busy_until[clients[i].client_id] = due_round[i]
+
+            # --- deliver; the aggregator decides when reports become
+            # server updates ---------------------------------------------
             base_dur = rtm.round_seconds(clients, knobs, times, surv_idx,
                                          deadline)
+            if wall and base_dur <= 0.0:
+                raise ValueError(
+                    f"{type(rtm).__name__}.round_seconds returned "
+                    f"{base_dur!r}; wall-clock rounds need positive "
+                    f"durations")
             applied: List[ServerUpdate] = []
 
             def _apply(update, params):
@@ -222,25 +333,78 @@ class FederatedEngine:
                 self.params = params
                 applied.append(update)
                 self._emit("on_server_update", update)
+                _release(update)
                 return params
 
-            for rep in inbox:
-                rep.round_submitted = t
-                rep.staleness = t - rep.round_trained
-                update = agg.submit(rep)
+            if wall:
+                round_end_cap = round_start + base_dur
+                # earlier rounds' reports landing in this round's window,
+                # popped before this round's missers join the queue: a
+                # miss is always at least one round late
+                due = pending_q.pop_until(round_end_cap)
+                for i in late_idx:
+                    pending_q.push(round_start + times[i], reports[i])
+                    busy.add(clients[i].client_id)
+                events = [pending_q.stamp(
+                    round_start + (times[i] if times
+                                   else rtm.client_seconds(clients[i],
+                                                           knobs[i])),
+                    reports[i]) for i in surv_idx]
+                events = sorted(events + due, key=lambda e: e.sort_key())
+                arrived = []
+                inbox: List[ClientReport] = []
+                round_end = round_end_cap
+                cut = None
+                for k, ev in enumerate(events):
+                    rep = ev.report
+                    clock.advance_to(ev.arrival,
+                                     f"deliver:c{rep.client.client_id}")
+                    if rep.round_trained < t:
+                        arrived.append(rep)
+                    busy.discard(rep.client.client_id)
+                    rep.round_submitted = t
+                    rep.staleness = t - rep.round_trained
+                    inbox.append(rep)
+                    update = agg.submit(rep)
+                    if update is not None:
+                        params = _apply(update, params)
+                        if agg.applies_mid_round:
+                            # the buffer event ends this round; later
+                            # deliveries belong to the next round
+                            round_end = ev.arrival + server_cost
+                            cut = k + 1
+                            break
+                if cut is not None:
+                    for ev in events[cut:]:
+                        pending_q.push_event(ev)
+                        busy.add(ev.report.client.client_id)
+                else:
+                    update = agg.flush(t)
+                    if update is not None:
+                        params = _apply(update, params)
+                clock.advance_to(round_end, f"round_end:{t}")
+            else:
+                arrived = sorted(pending.pop(t, ()),
+                                 key=lambda r: (r.round_trained,
+                                                r.arrival_time))
+                inbox = arrived + [reports[i] for i in surv_idx]
+                for rep in inbox:
+                    rep.round_submitted = t
+                    rep.staleness = t - rep.round_trained
+                    update = agg.submit(rep)
+                    if update is not None:
+                        params = _apply(update, params)
+                update = agg.flush(t)
                 if update is not None:
                     params = _apply(update, params)
-            update = agg.flush(t)
-            if update is not None:
-                params = _apply(update, params)
-            # accounting only in rounds mode: the barrier's duration
-            clock.advance_to(round_start + base_dur, f"round_end:{t}")
-            dynamics.settle(clients, base_knobs, knobs, list(surv_idx),
-                            lost_idx)
+                # accounting only in rounds mode: the barrier's duration
+                clock.advance_to(round_start + base_dur, f"round_end:{t}")
+            dynamics.settle(clients, base_knobs, knobs,
+                            list(surv_idx) + late_idx, lost_idx)
 
             # --- constraint accounting over the reports delivered, in
             # canonical order (the float means are a function of the
-            # report set) ----------------------------------------------
+            # report set); ``inbox`` keeps delivery order ---------------
             stats = canonical_order(inbox)
             usages = [cset.measure(rep) for rep in stats]
             if stats:
@@ -293,23 +457,47 @@ class FederatedEngine:
                 reports_applied=sum(len(u.reports) for u in applied),
                 mean_staleness=(float(np.mean([rep.staleness
                                                for rep in stats]))
-                                if stats else 0.0))
+                                if stats else 0.0),
+                late_arrivals=[rep.client.client_id for rep in arrived])
             result.history.append(record)
             self._emit("on_round_end", record)
 
+        # drain what the policy still buffers (FedBuff's partial buffer):
+        # those clients trained and were accounted
         update = agg.finalize(t)
         if update is not None:
             params = aggregation.apply_delta(params, update.delta)
             self.params = params
             self._emit("on_server_update", update)
+            _release(update)
             last = result.history[-1]
             last.updates_applied += 1
             last.reports_applied += len(update.reports)
+        if wall and len(pending_q):
+            # in-flight reports whose arrival fell in no round: the run
+            # ended first, so they never reach the model
+            leftovers = pending_q.drain()
+            if result.history:
+                last = result.history[-1]
+                last.dropped = (list(last.dropped)
+                                + [ev.report.client.client_id
+                                   for ev in leftovers])
+            self.strategy.on_dropout([ev.report.client for ev in leftovers])
+            for ev in leftovers:
+                ev.report.delta = None
 
         result.final_params = params
         result.history[-1].val_loss = evaluate(params)
         self._emit("on_train_end", result)
         return result
+
+
+def _release(update: ServerUpdate) -> None:
+    """Drop the deltas of an applied update's reports: their work is in
+    the parameters now, and a report kept for its metadata (a callback,
+    the round's inbox) must not hold device memory."""
+    for rep in update.reports:
+        rep.delta = None
 
 
 def _default_duals(duals_by_profile: Dict[str, Dict[str, float]],

@@ -7,22 +7,24 @@
 ``FedAvg`` fixes the knobs and averages (``fedavg_weighted``: the
 |D_i|-weighted mean); ``CAFLL`` runs the paper's Lagrangian loop with one
 dual state per device profile over a pluggable constraint stack
-(``repro_torch.constraints``; every constraint steps with ``fl.duals``,
-the reference's ``fl.dual_overrides`` are not ported). The reference's
-``ServerOpt`` (FedAdam, FedAvgM, ``<base>+adam`` / ``+momentum``) is not
-ported yet (ROADMAP queue 8); ``make_strategy`` raises for it.
+(``repro_torch.constraints``: constraints, dual controller, knob policy,
+and per-constraint ``fl.dual_overrides``); ``ServerOpt`` wraps any
+strategy with a FedOpt server optimizer (FedAvgM, FedAdam) on the
+aggregated pseudo-gradient.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
 from repro_torch.configs.base import FLConfig
-from repro_torch.constraints import (ConstraintReport, make_controller,
-                                     make_knob_policy, paper_constraints)
+from repro_torch.constraints import (ConstraintReport, make_constraints,
+                                     make_controller, make_knob_policy,
+                                     resolve_dual_configs)
 from repro_torch.core import aggregation
 from repro_torch.core.duals import DualState
 from repro_torch.core.policy import Knobs, fedavg_knobs
 from repro_torch.fl.device import DEFAULT_PROFILE, ClientInfo
+from repro_torch.optim import adam, make_optimizer
 
 
 class FederatedStrategy:
@@ -83,18 +85,26 @@ class FedAvg(FederatedStrategy):
 class CAFLL(FederatedStrategy):
     """The paper's constraint-aware loop: one ``DualState`` per device
     profile, updated against that profile's budgets with the mean usage
-    of its reporting clients, over the paper's stack: its four
-    constraints, the dead-zone law and Eq. 5-7 (the reference's other
-    stacks are not ported yet, ROADMAP queue 8)."""
+    of its reporting clients. The stack comes from ``fl.constraints`` /
+    ``fl.dual_controller`` / ``fl.knob_policy`` unless the keyword
+    arguments (specs or instances) name one; the default is the paper's
+    four constraints, the dead-zone law and Eq. 5-7. Each constraint
+    steps with its ``fl.dual_overrides`` config, else ``fl.duals``."""
 
     name = "cafl"
 
-    def __init__(self, fl: FLConfig, init_duals: Optional[DualState] = None):
+    def __init__(self, fl: FLConfig, init_duals: Optional[DualState] = None,
+                 constraints=None, controller=None, knob_policy=None):
         self.fl = fl
-        self.constraints = paper_constraints()
-        self.controller = make_controller("deadzone")
-        self.knob_policy = make_knob_policy("paper",
-                                            constraints=self.constraints)
+        self.constraints = make_constraints(
+            constraints if constraints is not None else fl.constraints)
+        self.controller = make_controller(
+            controller if controller is not None else fl.dual_controller)
+        self.knob_policy = make_knob_policy(
+            knob_policy if knob_policy is not None else fl.knob_policy,
+            constraints=self.constraints)
+        self._dual_cfgs = resolve_dual_configs(fl.duals, fl.dual_overrides,
+                                               self.constraints.names)
         self.duals: Dict[str, DualState] = {}
         self._last_reports: Dict[str, List[ConstraintReport]] = {}
         if init_duals is not None:
@@ -135,7 +145,7 @@ class CAFLL(FederatedStrategy):
                 ratio = mean / budget
                 prev = state.lam.get(c.name, 0.0)
                 lam = self.controller.step(f"{name}:{c.name}", prev, ratio,
-                                           self.fl.duals)
+                                           self._dual_cfgs[c.name])
                 new_lam[c.name] = lam
                 reports.append(ConstraintReport(
                     name=c.name, profile=name, usage=mean, budget=budget,
@@ -155,22 +165,80 @@ class CAFLL(FederatedStrategy):
         return self._last_reports
 
 
+class ServerOpt(FederatedStrategy):
+    """FedOpt wrapper (Reddi et al., "Adaptive Federated Optimization"):
+    the inner strategy's aggregate is the negated pseudo-gradient, and a
+    server optimizer steps on it. ``optimizer="momentum"`` is FedAvgM,
+    ``"adam"`` FedAdam, with the large adaptivity ``eps`` (0.1) FedAdam
+    needs on pseudo-gradients this small."""
+
+    def __init__(self, inner: FederatedStrategy, optimizer: str = "adam",
+                 lr: float = 0.1, eps: float = 0.1):
+        self.inner = inner
+        self.opt = (adam(lr, eps=eps) if optimizer == "adam"
+                    else make_optimizer(optimizer, lr))
+        self.name = f"{inner.name}+{optimizer}"
+        self._state = None
+
+    def configure_round(self, rnd, clients):
+        return self.inner.configure_round(rnd, clients)
+
+    def aggregate(self, deltas, weights=None):
+        mean = self.inner.aggregate(deltas, weights)
+        g = {k: -d for k, d in mean.items()}
+        if self._state is None:
+            self._state = self.opt.init(g)
+        updates, self._state = self.opt.update(g, self._state, g)
+        return updates
+
+    def reset(self):
+        self.inner.reset()
+
+    def update_state(self, usages, clients):
+        return self.inner.update_state(usages, clients)
+
+    def on_dropout(self, dropped):
+        self.inner.on_dropout(dropped)
+
+    def observe_round(self, plan, reports, dynamics):
+        self.inner.observe_round(plan, reports, dynamics)
+
+    def duals_snapshot(self):
+        return self.inner.duals_snapshot()
+
+    def constraint_reports(self):
+        return self.inner.constraint_reports()
+
+    @property
+    def constraints(self):
+        """The inner strategy's constraint set (None for dual-free
+        bases): what the engine measures."""
+        return getattr(self.inner, "constraints", None)
+
+
 def make_strategy(method: str, fl: FLConfig,
-                  init_duals: Optional[DualState] = None
-                  ) -> FederatedStrategy:
-    """Resolve a method string: "fedavg", "fedavg_weighted" or "cafl".
-    Server optimizers ("fedadam", "fedavgm", "<base>+adam",
-    "<base>+momentum") raise: not ported yet (ROADMAP queue 8)."""
+                  init_duals: Optional[DualState] = None,
+                  constraints=None, controller=None,
+                  knob_policy=None) -> FederatedStrategy:
+    """Resolve a method string: "fedavg", "cafl", "fedavg_weighted",
+    "fedadam", "fedavgm", or a base composed as "<base>+adam" /
+    "<base>+momentum". ``fl.server_opt`` composes the same wrapper onto a
+    plain name; the constraint-stack keywords override ``fl``'s for
+    CAFLL bases."""
     name = method.lower()
+    aliases = {"fedadam": "fedavg+adam", "fedavgm": "fedavg+momentum"}
+    name = aliases.get(name, name)
     base_name, _, server = name.partition("+")
-    if name in ("fedadam", "fedavgm") or server:
-        raise NotImplementedError(
-            f"server optimizer {method!r} is not ported yet "
-            f"(ROADMAP queue 8)")
     if base_name == "fedavg":
-        return FedAvg(fl)
-    if base_name == "fedavg_weighted":
-        return FedAvg(fl, weighted=True)
-    if base_name == "cafl":
-        return CAFLL(fl, init_duals=init_duals)
-    raise ValueError(f"unknown federated method: {method!r}")
+        base: FederatedStrategy = FedAvg(fl)
+    elif base_name == "fedavg_weighted":
+        base = FedAvg(fl, weighted=True)
+    elif base_name == "cafl":
+        base = CAFLL(fl, init_duals=init_duals, constraints=constraints,
+                     controller=controller, knob_policy=knob_policy)
+    else:
+        raise ValueError(f"unknown federated method: {method!r}")
+    server = server or fl.server_opt
+    if server:
+        base = ServerOpt(base, optimizer=server, lr=fl.server_lr)
+    return base

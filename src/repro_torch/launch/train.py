@@ -7,9 +7,8 @@
 Writes <out>_<method>.json (round-by-round history, the reference's
 format) and <out>_<method>.ckpt (final params, readable by both packages)
 through engine callbacks. The flags are the reference's plus
-``--device``; ``--server-opt`` is composed onto the method
-(``cafl+adam``), and it and ``--executor batched`` raise (not ported
-yet: ROADMAP queues 7 and 8).
+``--device``; ``--executor`` and ``--server-opt`` go into ``FLConfig``
+(``executor``, ``server_opt``), as in the reference.
 """
 from __future__ import annotations
 
@@ -30,7 +29,8 @@ def main(argv=None) -> Dict[str, FLResult]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="charlm-shakespeare")
     ap.add_argument("--method", default="both",
-                    help='"cafl", "fedavg", "both", or "fedavg_weighted"')
+                    help='"cafl", "fedavg", "both", or any strategy name '
+                         'the engine resolves (e.g. "fedadam", "cafl+adam")')
     ap.add_argument("--executor", default="sequential",
                     choices=["sequential", "batched"])
     ap.add_argument("--server-opt", default="",
@@ -48,7 +48,8 @@ def main(argv=None) -> Dict[str, FLResult]:
     cfg = get_config(args.arch)
     if cfg.vocab_size < ds.vocab_size:
         cfg = cfg.replace(vocab_size=ds.vocab_size)
-    fl = get_fl_config()
+    fl = get_fl_config().replace(executor=args.executor,
+                                 server_opt=args.server_opt)
     if args.rounds:
         fl = fl.replace(rounds=args.rounds)
     if args.seed is not None:
@@ -65,10 +66,7 @@ def main(argv=None) -> Dict[str, FLResult]:
                      CheckpointCallback(f"{args.out}_{method}.ckpt")]
         if not args.quiet:
             callbacks.append(LoggingCallback())
-        strategy = (f"{method}+{args.server_opt}" if args.server_opt
-                    else method)
-        engine = FederatedEngine(model, fl, ds, strategy=strategy,
-                                 executor=args.executor,
+        engine = FederatedEngine(model, fl, ds, strategy=method,
                                  callbacks=callbacks, device=args.device)
         results[method] = result = engine.run()
         print(f"[{method}] saved {path}; summary:", result.summary())

@@ -1,3 +1,3 @@
 from repro_torch.optim.optimizers import (  # noqa: F401
-    AdamState, Optimizer, adamw, make_optimizer,
+    AdamState, Optimizer, adam, adamw, make_optimizer, momentum, sgd,
 )
