@@ -43,14 +43,18 @@ before the final line:
    both timed at one full-width round's fold (C = 6, n = 1,900,800) in
    turns with ``torch.sum`` over int64; and the host work of one masked
    round (fixed point, pairwise masks, the fold's copies). The flash-attention
-   kernel against its plain version over f32 / bf16, D in {24, 128, 256},
+   kernel against its plain version over f32 / bf16, D in {24, 128, 192,
+   256} (192: MLA's q/k width),
    GQA groups {1, 2, 4}, causal or not, window {None, 64, 4096}, softcap
    {None, 50}, S in {1, 7, 128, 129, 1000, 8192} and B in {1, 2} (B = 1
    only at S = 8192), at the tolerances below; then its time at one
-   Gemma2 global and one local layer (B = 1, S = 8192) and at the
-   char-LM eval's shape (B = 64, S = 32, H = 8, D = 24; and S = 128),
-   beside its plain version, the bound and, for the char-LM shapes,
-   SDPA; at Gemma2's shapes SDPA without the softcap (another function,
+   Gemma2 global and one local layer (B = 1, S = 8192), one Phi-3.5-MoE
+   layer (S = 8192, H 32 over KVH 8, D 128), one DeepSeek-V3 MLA layer
+   (S = 1,024, H = KVH = 128, D 192) and at the char-LM eval's shape (B
+   = 64, S = 32, H = 8, D = 24; and S = 128), beside its plain version,
+   the bound and, where no softcap makes it another function (the
+   char-LM, Phi, MLA), SDPA; at Gemma2's shapes SDPA without the
+   softcap (another function,
    so ``sdpa_no_softcap_ms``, never ``library_ms``) and the SM clock and
    power draw (nvidia-smi) right after the timed window.
 3. rounds: the full-width ``charlm-shakespeare`` model through five
@@ -101,12 +105,28 @@ before the final line:
    must take the tensor-core variant (``mma_bf16``). A reduction
    of the ``prefill_32k`` shape (B = 32, S = 32,768) in batch and
    length; widths unchanged.
+   Then the same serving path (``drive_serving``) at two MoE configs,
+   full width, depth cut to fit the card: ``serve_moe``, Phi-3.5-MoE
+   (16 of 32 layers, 16 experts top 2, 21.1 B parameters, bf16) on one
+   8,192-token prompt and 16 decode steps; ``serve_mla``, DeepSeek-V3
+   (4 of 61 layers: the 3 dense prefix layers and 1 MoE layer of 256
+   experts top 8 and a shared expert, MLA, 15.5 B parameters) on one
+   1,024-token prompt (one MoE group) and 8 decode steps through the
+   absorbed MLA decode. The kernel-vs-plain check runs at the config's
+   capacity factor 1.25; the decode-vs-prefill check at one where the
+   capacity is the group size (8 and 32), since a one-token decode never
+   drops a token; each line prints the drop share at 1.25, the routing
+   flips of each check per MoE layer, and the peak memory of its phase.
+   Bound: 2 x 2^-8 x sqrt(2 L) for L layers. Then ``serve_smoke``: each
+   of the six new configs (Qwen2, Mistral-Large, Minitron, PaliGemma,
+   Phi-3.5-MoE, DeepSeek-V3) at its SMOKE size, f32, prefill on the card
+   against the CPU from the same weights, within 1e-4.
 7. a ``kernel_off_path`` line for the limb entry of the masked sum (all
    the summary's keys; no main path runs it, so its launches must be 0),
    the ``{"kernels": [...]}`` summary of the main paths' kernels, the
    nvidia-smi line, and the final ``{"ok": true, ...}`` line.
 
-Each path of phases 3 to 6 (each engine run, the prefill) runs with
+Each path of phases 3 to 6 (each engine run, each timed prefill) runs with
 the launch counters zeroed just before it and read just after, and
 fails if a kernel of that path was never launched.
 
@@ -183,7 +203,7 @@ CARD_RATES = {
 #: the flash kernel's sweep (see the docstring); heads are KVH = 2 times
 #: the group size
 FLASH_DTYPES = ("float32", "bfloat16")
-FLASH_DIMS = (24, 128, 256)
+FLASH_DIMS = (24, 128, 192, 256)
 FLASH_GROUPS = (1, 2, 4)
 FLASH_MASKS = [(causal, window, softcap) for causal in (True, False)
                for window in (None, 64, 4096) for softcap in (None, 50.0)]
@@ -196,13 +216,45 @@ FLASH_F32_ATOL = 2e-5
 #: the serving run: Gemma2-9B, one prompt of 8,192 tokens, 16 decode steps
 SERVE_PROMPT = 8192
 SERVE_STEPS = 16
-#: logits against logits along the bf16 path, as ||a - b|| / ||b||. Each
-#: of the 42 layers rounds its residual update to bf16 (relative spacing
-#: 2^-8), independently in two runs that differ anywhere upstream, so
-#: two runs part by about 2^-8 * sqrt(2 * 42) = 0.036; the check allows
-#: twice that. It holds the kernel against the plain attention inside the
-#: model (a) and decode against prefill (b).
-SERVE_REL_L2 = 2 * 2.0 ** -8 * math.sqrt(2 * 42)
+SERVE_REDUCES = ("prefill_32k (B=32, S=32,768): batch and length cut, "
+                 "widths unchanged")
+
+
+def serve_rel_l2(layers: int) -> float:
+    """Logits against logits along the bf16 path, as ||a - b|| / ||b||.
+    Each of the L layers rounds its residual update to bf16 (relative
+    spacing 2^-8), independently in two runs that differ anywhere
+    upstream, so two runs part by about 2^-8 * sqrt(2 L); the check
+    allows twice that. It holds the kernel against the plain attention
+    inside the model (a) and decode against prefill (b). Gemma2-9B's 42
+    layers: 0.072."""
+    return 2 * 2.0 ** -8 * math.sqrt(2 * layers)
+
+
+#: the MoE serving runs (keyword arguments of ``drive_serving``): depth
+#: cut to fit one card, widths as published; (b) at a capacity factor
+#: where the capacity is the group size (Phi: 2048 x 2 x 8 / 16; DeepSeek:
+#: 1024 x 8 x 32 / 256)
+SERVE_MOE = dict(
+    arch="phi3.5-moe-42b-a6.6b", phase="serve_moe", layers=16,
+    prompt_len=8192, steps=16, check_capacity=8.0,
+    reduces="depth 32 -> 16 layers (42 GB of bf16 weights at 16 layers, "
+            "84 GB at 32); prefill_32k (B=32, S=32,768) cut in batch and "
+            "length; capacity factor 1.25 -> 8 for the decode checks only; "
+            "widths unchanged")
+SERVE_MLA = dict(
+    arch="deepseek-v3-671b", phase="serve_mla", layers=4, prompt_len=1024,
+    steps=8, check_capacity=32.0,
+    reduces="depth 61 -> 4 layers (the 3 dense prefix layers and 1 MoE "
+            "layer: 31 GB of bf16 weights); prefill_32k (B=32, S=32,768) "
+            "cut to one MoE group (B=1, S=1,024); capacity factor 1.25 -> "
+            "32 for the decode checks only; widths unchanged")
+#: the serve_smoke phase: each new config at its SMOKE size, f32, card
+#: against CPU, within this share of each tensor's largest magnitude
+#: (fp32 on both, sums in other orders; no TF32)
+SMOKE_ARCHS = ("qwen2-72b", "mistral-large-123b", "minitron-8b",
+               "paligemma-3b", "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
+SMOKE_CARD_RTOL = 1e-4
 #: |loss(card) - loss(cpu)| / |loss(cpu)| allowed for one microbatch:
 #: fp32 on both, sums taken in another order (no TF32 on the card)
 CPU_CARD_RTOL = 1e-4
@@ -796,11 +848,15 @@ def flash_pairs(sq: int, sk: int, causal: bool, window) -> int:
 
 
 #: (label, B, S, H, KVH, D, dtype, window, softcap) at the main path's
-#: shapes: Gemma2's global and local layers in prefill, and the char-LM
-#: eval (its FL config's seq_len 32; also at FLConfig's default 128)
+#: shapes: Gemma2's global and local layers, a Phi-3.5-MoE layer and a
+#: DeepSeek-V3 MLA layer in prefill, and the char-LM eval (its FL
+#: config's seq_len 32; also at FLConfig's default 128)
 FLASH_TIMED = (
     ("gemma2 global layer", 1, 8192, 16, 8, 256, "bfloat16", None, 50.0),
     ("gemma2 local layer", 1, 8192, 16, 8, 256, "bfloat16", 4096, 50.0),
+    ("phi3.5-moe layer", 1, 8192, 32, 8, 128, "bfloat16", None, None),
+    ("deepseek-v3 mla layer, v padded", 1, 1024, 128, 128, 192, "bfloat16",
+     None, None),
     ("charlm eval", 64, 32, 8, 8, 24, "float32", None, None),
     ("charlm eval, S = 128", 64, 128, 8, 8, 24, "float32", None, None),
 )
@@ -842,7 +898,9 @@ def flash_records(dev, card_name: str):
     """Hold the flash kernel to its plain version at the main path's
     shapes (the sweep's bounds; fails outside them), and time it there
     beside the plain version, SDPA where it computes the same function
-    (no softcap, no window: the char-LM), and the bound; at Gemma2's
+    (no softcap, no window: the char-LM, Phi-3.5-MoE's layer and
+    DeepSeek-V3's MLA layer with v zero-padded to 192, as the model runs
+    it), and the bound; at Gemma2's
     shapes also SDPA without the softcap (``sdpa_no_softcap_ms``: not the
     same function) and the SM clock and power draw right after the
     kernel's timed window."""
@@ -863,13 +921,12 @@ def flash_records(dev, card_name: str):
         big = s >= 4096
         kernel = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
         library = None
-        if big:
-            ms = time_ms(kernel, reps=10)
-        elif window is None and softcap is None:
+        if window is None and softcap is None:
             # the same function in one PyTorch call: timed in turns
-            ms, library = time_turns_ms(kernel, sdpa_call(q, k, v, None))
+            ms, library = time_turns_ms(kernel, sdpa_call(q, k, v, None),
+                                        reps=10 if big else 100)
         else:
-            ms = time_ms(kernel, reps=100)
+            ms = time_ms(kernel, reps=10 if big else 100)
         rec = {
             "name": "flash_attention_bhsd", "route": "cuda",
             "source": FLASH_SOURCE,
@@ -886,7 +943,7 @@ def flash_records(dev, card_name: str):
                                                                   **kw),
                                   reps=3 if big else 30, warmup=1)
         rec["library_ms"] = library
-        if big:
+        if big and softcap is not None:
             rec["sdpa_no_softcap_ms"] = time_ms(sdpa_call(q, k, v, window),
                                                 reps=10)
         rec["bound_ms"], bound = flash_bound_ms(q, k, window, card_name)
@@ -1482,55 +1539,109 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def logit_gap(name: str, got, want) -> dict:
+def logit_gap(name: str, got, want, bound: float, config: str) -> None:
     gap = rel_l2(got, want)
-    rec = {"phase": "serve_check", "check": name, "rel_l2": gap,
+    rec = {"phase": "serve_check", "config": config, "check": name,
+           "rel_l2": gap,
            "max_abs": float((got.double() - want.double()).abs().max()),
            "max_abs_logit": float(want.abs().max()),
            "argmax_equal": bool(torch.equal(got.argmax(-1), want.argmax(-1))),
-           "rel_l2_bound": SERVE_REL_L2}
+           "rel_l2_bound": bound}
     emit(rec)
-    check(math.isfinite(gap) and gap <= SERVE_REL_L2,
-          f"{name}: logits part by {gap} (bound {SERVE_REL_L2})")
-    return rec
+    check(math.isfinite(gap) and gap <= bound,
+          f"{config} {name}: logits part by {gap} (bound {bound})")
 
 
-def prefill_device_split(prefill, params, batch) -> dict:
-    """One prefill under torch.profiler: the flash kernel's device time
-    against all device time."""
+def device_split(fn, top: int = 6):
+    """``fn()`` under torch.profiler -> (its result, {"device_us": all
+    device time, "flash_device_us": the flash kernel's, "top_kernels":
+    the ``top`` largest kernels by device time, [name, us]})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention import KERNELS
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        out = prefill(params, batch)
+        out = fn()
         torch.cuda.synchronize()
-    total = flash = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            total += e.self_device_time_total
-            if any(name in e.key for name in KERNELS.values()):
-                flash += e.self_device_time_total
-    check(total > 0 and flash > 0,
-          "the profiler saw no device time of the flash kernel in prefill")
-    return out, {"prefill_device_us": total, "flash_device_us": flash,
-                 "flash_share": flash / total}
+    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    total = sum(us for _, us in kernels)
+    flash = sum(us for name, us in kernels
+                if any(k in name for k in KERNELS.values()))
+    kernels.sort(key=lambda kv: -kv[1])
+    return out, {"device_us": total, "flash_device_us": flash,
+                 "top_kernels": [[name[:80], us] for name, us in
+                                 kernels[:top]]}
 
 
-def drive_serving(dev, smi: str) -> int:
-    """Gemma2-9B at full width and depth on the card: prefill one
-    8,192-token prompt and decode 16 greedy tokens through the serving
-    steps; returns the flash launches of the timed prefill."""
+@contextlib.contextmanager
+def routing_log():
+    """While open, every MoE layer's routing (``models.moe.route``, one
+    call per MoE layer and forward, in layer order) is logged: each real
+    token's experts, sorted, and whether each choice was kept. Yields the
+    list of (experts (T, K), kept (T, K)) pairs, on the card."""
+    from repro_torch.models import moe
+    real, calls = moe.route, []
+
+    def route(p, x, cfg):
+        r = real(p, x, cfg)
+        k = r.expert.shape[-1]
+        calls.append((r.expert.reshape(-1, k)[:r.n_tok].sort(-1).values,
+                      r.kept.reshape(-1, k)[:r.n_tok]))
+        return r
+
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = real
+
+
+def flips(a, b, rows=slice(None)) -> list:
+    """Per MoE layer, the tokens (of ``rows``) whose expert set differs
+    between two logs of the same layers."""
+    return [int((x[rows] != y[rows]).any(-1).sum())
+            for (x, _), (y, _) in zip(a, b)]
+
+
+def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
+                  phase: str = "serve", layers: int = 0,
+                  prompt_len: int = SERVE_PROMPT, steps: int = SERVE_STEPS,
+                  check_capacity: float = 0.0,
+                  reduces: str = SERVE_REDUCES) -> int:
+    """One config at full width on the card (depth cut to ``layers``
+    when given): prefill one ``prompt_len``-token prompt and decode
+    ``steps`` greedy tokens through the serving steps; returns the flash
+    launches of the timed prefill.
+
+    Checks: (a) the timed prefill's last logits against the same model
+    with the plain attention in its place; (b) decode after the first and
+    the last step against a prefill over the prompt plus the tokens so
+    far. Both within 2 x 2^-8 x sqrt(2 L) relative L2 (``serve_rel_l2``).
+    An MoE config drops tokens over capacity in prefill, and a one-token
+    decode never does; so (b) runs a model at ``check_capacity``, where
+    the capacity is the group size and nothing drops, and the line prints
+    the drop share at the config's own factor beside it, and, per MoE
+    layer, the tokens whose expert set differs between the two runs of
+    each check (routing flips from bf16 rounding)."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.kernels import cuda_lib, ops, ref
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import build
 
-    cfg = get_config("gemma2-9b")
+    published = get_config(arch)
+    cfg = published.replace(num_layers=layers) if layers else published
     model = build(cfg)
+    check_model = model
+    if check_capacity:
+        check_model = build(cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=check_capacity)))
+    bound = serve_rel_l2(cfg.num_layers)
     shape = dataclasses.replace(INPUT_SHAPES["prefill_32k"],
-                                seq_len=SERVE_PROMPT, global_batch=1)
+                                seq_len=prompt_len, global_batch=1)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     phase_t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1539,13 +1650,16 @@ def drive_serving(dev, smi: str) -> int:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in params.values())
-    check(n_params == model.param_count()["total"],
-          f"{n_params} parameters drawn, {model.param_count()} expected")
-    prompt = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT),
+    counts = model.param_count()
+    check(n_params == counts["total"],
+          f"{n_params} parameters drawn, {counts} expected")
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
                            generator=torch.Generator(device=dev).manual_seed(
                                1), device=dev)
-    prefill = make_prefill_step(model, shape, max_new_tokens=SERVE_STEPS)
-    decode = make_decode_step(model)
+    prefill = make_prefill_step(model, shape, max_new_tokens=steps)
+    check_prefill = make_prefill_step(check_model, shape,
+                                      max_new_tokens=steps)
+    decode = make_decode_step(check_model)
     prefill(params, {"tokens": prompt[:, :512]})          # warm up
     torch.cuda.synchronize()
 
@@ -1566,58 +1680,153 @@ def drive_serving(dev, smi: str) -> int:
     check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"prefill logits {tuple(logits.shape)} not finite or misshapen")
+    if check_capacity:
+        del caches
+        start, caches = check_prefill(params, {"tokens": prompt})
+    else:
+        start = logits
 
     tokens, step_ms = [], []
-    tok = logits.argmax(-1)
+    tok = start.argmax(-1)
     first = None
-    for i in range(SERVE_STEPS):
-        tokens.append(tok)
-        t0 = time.perf_counter()
-        out, caches = decode(params, caches, tok)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        check(bool(torch.isfinite(out).all()), f"decode step {i}: not finite")
-        if i == 0:
-            first = out.clone()
-        tok = out.argmax(-1)
-    check(ops.LAUNCHES["flash_attention_bhsd"] == cfg.num_layers,
+    flash_before = ops.LAUNCHES["flash_attention_bhsd"]
+    with routing_log() as decoded:
+        for i in range(steps):
+            tokens.append(tok)
+            t0 = time.perf_counter()
+            out, caches = decode(params, caches, tok)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check(bool(torch.isfinite(out).all()),
+                  f"decode step {i}: not finite")
+            if i == 0:
+                first = out.clone()
+            tok = out.argmax(-1)
+    check(ops.LAUNCHES["flash_attention_bhsd"] == flash_before,
           "decode launched the flash kernel (its attention is plain)")
+    # one more step under the profiler: the device's share of a step
+    _, step_split = device_split(lambda: decode(params, caches, tok))
     del caches
+    n_moe = len(decoded) // steps
 
-    # (b) decode against prefill over the prompt plus the tokens so far;
-    # the first of the two prefills runs under the profiler
-    (after_one, _), split = prefill_device_split(
-        prefill, params, {"tokens": torch.cat([prompt, tokens[0]], 1)})
-    checks = [logit_gap("decode step 1 vs prefill", first, after_one)]
-    after_all, _ = prefill(params, {"tokens": torch.cat([prompt] + tokens,
-                                                        1)})
-    checks.append(logit_gap(f"decode step {SERVE_STEPS} vs prefill", out,
-                            after_all))
+    # (b) decode against prefill over the prompt plus the tokens so far
+    with routing_log() as after_one_routes:
+        after_one, _ = check_prefill(params, {"tokens": torch.cat(
+            [prompt, tokens[0]], 1)})
+    logit_gap("decode step 1 vs prefill", first, after_one, bound, cfg.name)
+    with routing_log() as after_all_routes:
+        after_all, _ = check_prefill(params, {"tokens": torch.cat(
+            [prompt] + tokens, 1)})
+    logit_gap(f"decode step {steps} vs prefill", out, after_all, bound,
+              cfg.name)
     del after_one, after_all
 
-    # (a) the kernel against the plain attention inside the same model
+    # (a) the kernel against the plain attention inside the same model;
+    # the kernel's prefill (the timed one's function) under the profiler
     real = ops.flash_attention
-    ops.flash_attention = ref.flash_attention_ref
-    try:
-        plain, _ = prefill(params, {"tokens": prompt})
-    finally:
-        ops.flash_attention = real
-    checks.append(logit_gap("prefill kernel vs plain attention", logits,
-                            plain))
+    with routing_log() as kernel_routes:
+        (kernel, _), split = device_split(
+            lambda: prefill(params, {"tokens": prompt}))
+    check(split["device_us"] > 0 and split["flash_device_us"] > 0,
+          "the profiler saw no device time of the flash kernel in prefill")
+    split = {"prefill_device_us": split["device_us"],
+             "flash_device_us": split["flash_device_us"],
+             "flash_share": split["flash_device_us"] / split["device_us"],
+             "prefill_top_kernels": split["top_kernels"]}
+    with routing_log() as plain_routes:
+        ops.flash_attention = ref.flash_attention_ref
+        try:
+            plain, _ = prefill(params, {"tokens": prompt})
+        finally:
+            ops.flash_attention = real
+    logit_gap("prefill kernel vs plain attention", kernel, plain, bound,
+              cfg.name)
     peak = torch.cuda.max_memory_allocated()
-    emit({"phase": "serve", "config": cfg.name, "params": n_params,
-          "layers": cfg.num_layers, "dtype": str(cfg.param_dtype),
-          "batch": 1, "prompt": SERVE_PROMPT, "decode_steps": SERVE_STEPS,
-          "reduces": "prefill_32k (B=32, S=32,768): batch and length cut, "
-                     "widths unchanged",
-          "init_s": init_s, "prefill_s": prefill_s,
-          "prefill_tokens_per_s": SERVE_PROMPT / prefill_s,
-          "decode_ms_per_token": statistics.median(step_ms),
-          "decode_step_ms": step_ms, "peak_memory_bytes": peak,
-          "launches": launches, "flash_variants": variants, **clocks,
-          **split,
-          "phase_s": time.perf_counter() - phase_t0, "nvidia_smi": smi})
+    rec = {"phase": phase, "config": cfg.name, "params": n_params,
+           "active_params": counts["active"], "layers": cfg.num_layers,
+           "dtype": str(cfg.param_dtype), "batch": 1, "prompt": prompt_len,
+           "decode_steps": steps, "reduces": reduces, "init_s": init_s,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": prompt_len / prefill_s,
+           "decode_ms_per_token": statistics.median(step_ms),
+           "decode_step_ms": step_ms, "peak_memory_bytes": peak,
+           "rel_l2_bound": bound, "launches": launches,
+           "flash_variants": variants, **clocks, **split,
+           "decode_step_device_us": step_split["device_us"],
+           "decode_top_kernels": step_split["top_kernels"]}
+    if cfg.moe:
+        dropped = [float(1 - kept.float().mean()) for _, kept in kernel_routes]
+        last = slice(-1, None)
+        rec.update({
+            "capacity_factor": cfg.moe.capacity_factor,
+            "drop_share": sum(dropped) / len(dropped),
+            "drop_share_per_layer": dropped,
+            "check_capacity_factor": check_capacity,
+            "check_drop_share": max(
+                float(1 - kept.float().mean())
+                for _, kept in after_all_routes),
+            "flips_kernel_vs_plain": flips(kernel_routes, plain_routes),
+            "flips_decode_vs_prefill": {
+                "step 1": flips(decoded[:n_moe], after_one_routes, last),
+                f"step {steps}": flips(decoded[-n_moe:], after_all_routes,
+                                       last)},
+        })
+        check(rec["check_drop_share"] == 0.0,
+              f"the decode checks' prefill dropped tokens at capacity "
+              f"factor {check_capacity}")
+    rec.update({"phase_s": time.perf_counter() - phase_t0,
+                "nvidia_smi": smi})
+    emit(rec)
     return launches["flash_attention_bhsd"]
+
+
+def drive_serve_smoke(dev) -> int:
+    """Each new config at its SMOKE size (f32) on the card: a prefill of a
+    ``synthetic_batch`` (2 x 64 tokens; PaliGemma's 8 patch tokens among
+    them) against the same prefill on the CPU from the same weights,
+    logits and every cache within ``SMOKE_CARD_RTOL`` of their largest
+    magnitude; one flash launch a layer. Returns the flash launches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build
+    from repro_torch.models.convert import flatten
+
+    total = 0
+    for arch in SMOKE_ARCHS:
+        cfg = get_smoke_config(arch)
+        model = build(cfg)
+        params = model.init(torch.Generator().manual_seed(5), "cpu").params()
+        batch = {k: torch.from_numpy(v) for k, v in
+                 synthetic_batch(cfg, 2, 64, seed=5).items()}
+        want, want_cache = model.prefill(params, batch, max_new_tokens=4)
+        ops.reset_launches()
+        got, got_cache = model.prefill(
+            {k: v.to(dev) for k, v in params.items()},
+            {k: v.to(dev) for k, v in batch.items()}, max_new_tokens=4)
+        torch.cuda.synchronize()
+        launches = ops.LAUNCHES["flash_attention_bhsd"]
+        check(launches == cfg.num_layers,
+              f"{arch} SMOKE: {launches} flash launches in one prefill, "
+              f"expected {cfg.num_layers}")
+        gaps = {"logits": (got.cpu() - want).abs().max().item()
+                / want.abs().max().item()}
+        want_flat, got_flat = flatten(want_cache), flatten(got_cache)
+        for name, w in want_flat.items():
+            w = w.double()
+            gaps[name] = ((got_flat[name].cpu().double() - w).abs().max()
+                          / max(w.abs().max(), 1e-30)).item()
+        worst = max(gaps.values())
+        emit({"phase": "serve_smoke", "config": cfg.name,
+              "layers": cfg.num_layers, "dtype": str(cfg.param_dtype),
+              "tokens": int(batch["tokens"].shape[1]),
+              "flash_launches": launches, "max_rel_gap": worst,
+              "worst": max(gaps, key=gaps.get), "bound": SMOKE_CARD_RTOL})
+        check(worst <= SMOKE_CARD_RTOL,
+              f"{arch} SMOKE: card and CPU prefill part by {worst} "
+              f"({max(gaps, key=gaps.get)})")
+        total += launches
+    return total
 
 
 def full_width(dev):
@@ -1645,6 +1854,7 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import cuda_lib
 
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1706,7 +1916,11 @@ def main() -> int:
         shutil.rmtree(out_dir, ignore_errors=True)
     det_launches = drive_masked(dev, default_cafl)
     fleet_launches = drive_fleet(dev)
-    serve_launches = {"flash_attention_bhsd": drive_serving(dev, smi)}
+    serve_flash = drive_serving(dev, smi)
+    serve_flash += drive_serving(dev, smi, **SERVE_MOE)
+    serve_flash += drive_serving(dev, smi, **SERVE_MLA)
+    serve_flash += drive_serve_smoke(dev)
+    serve_launches = {"flash_attention_bhsd": serve_flash}
     for r in recs + [limbs_rec]:
         r["launches"] = (launches[r["name"]] + train_launches[r["name"]]
                          + det_launches[r["name"]]
@@ -1722,6 +1936,7 @@ def main() -> int:
           f"the main path launched masked_sum_limbs "
           f"{limbs_rec['launches']} times")
 
+    emit({"phase": "total", "seconds": time.perf_counter() - start})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"phase": "kernel_off_path", **{k: limbs_rec[k] for k in keys},

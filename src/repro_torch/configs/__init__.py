@@ -1,6 +1,7 @@
 from repro_torch.configs.base import (  # noqa: F401
-    INPUT_SHAPES, Budgets, DualConfig, FLConfig, InputShape, ModelConfig,
+    INPUT_SHAPES, Budgets, DualConfig, FLConfig, FrontendConfig, InputShape,
+    MLAConfig, MoEConfig, ModelConfig,
 )
 from repro_torch.configs.registry import (  # noqa: F401
-    get_config, get_fl_config,
+    ARCH_IDS, get_config, get_fl_config, get_smoke_config,
 )

@@ -2,14 +2,15 @@
 
 The fields of ``repro.configs.base`` that the ported models read, with
 the same defaults; dtypes are ``torch`` dtypes. ``ModelConfig`` carries
-the switches of the dense decoder (attention pattern and window,
-softcaps, norm and MLP types, post-norms, embedding options) that the
-char-LM and Gemma2 read; the MoE / MLA / RG-LRU / xLSTM / frontend and
-encoder-decoder sub-configs are not ported yet (ROADMAP queue 1 item
-11), and ``block_pattern`` names block kinds that the port's stack
-refuses. ``FLConfig`` carries every field of the reference's, engine
-choices included (executor, aggregator, server optimizer, constraint
-stack, dual overrides, time mode, horizon).
+the switches of the attention-based decoders (attention pattern and
+window, softcaps, q/k/v biases, norm and MLP types, post-norms,
+embedding options) and the ``MoEConfig``, ``MLAConfig`` and
+``FrontendConfig`` sub-configs, as the reference has them; the RG-LRU /
+xLSTM sub-configs and the encoder-decoder fields are not ported yet
+(ROADMAP queue 1 item 11b), and ``block_pattern`` names block kinds
+that the port's stack refuses. ``FLConfig`` carries every field of the
+reference's, engine choices included (executor, aggregator, server
+optimizer, constraint stack, dual overrides, time mode, horizon).
 """
 from __future__ import annotations
 
@@ -18,6 +19,37 @@ from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 import torch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    first_dense_layers: int = 0       # leading layers that use a dense MLP
+    d_ff_dense: int = 0               # d_ff of those dense layers / shared expert
+    group_size: int = 2048            # tokens per dispatch group (GShard-style)
+    router_noise: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class FrontendConfig:
+    """Stub modality frontend: the batch carries precomputed embeddings."""
+    kind: str                         # "vision" | "audio"
+    embed_dim: int                    # SigLIP 1152 / speech-encoder 1024
+    num_prefix_tokens: int = 256      # vision: patch tokens prepended
 
 
 @dataclass(frozen=True)
@@ -41,11 +73,16 @@ class ModelConfig:
     # decode-time sliding window for long-context shapes (None -> full
     # cache)
     decode_window: Optional[int] = 8192
+    # --- specials ---
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
     # block kinds cycled over layers ("attn" | "rec" | "mlstm" | "slstm");
     # empty -> every layer is attention
     block_pattern: Tuple[str, ...] = ()
+    # --- frontend stub ---
+    frontend: Optional[FrontendConfig] = None
     # --- misc ---
-    mlp_type: str = "swiglu"          # geglu | gelu (swiglu: not ported)
+    mlp_type: str = "swiglu"          # swiglu | geglu | gelu | relu2
     norm_type: str = "rms"            # rms | layer
     post_norms: bool = False          # gemma2-style post-attn/post-ffn norms
     tie_embeddings: bool = True

@@ -4,8 +4,9 @@
 Frozen layers carry no gradients, no optimizer movement, and are excluded
 from ``params_active``, which is what the paper's E/C/M proxies charge
 for. The mask maps each parameter name to a 0/1 f32 tensor shaped to
-broadcast against the leaf: a scalar for the io leaves, and per unit
-along axis 0 (``(n_units, 1, ...)``) for the stacked unit leaves.
+broadcast against the leaf: a scalar for the io leaves and for each
+prefix layer's, and per unit along axis 0 (``(n_units, 1, ...)``) for
+the stacked unit leaves.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.convert import as_params
 from repro_torch.models.transformer import stack_plan
 
-_IO_FREEZABLE = ("embed", "pos_embed")
+_IO_FREEZABLE = ("embed", "pos_embed", "frontend_proj")
 
 
 def mask_tree(params: Any, cfg: ModelConfig, k: int) -> Dict[str, torch.Tensor]:
@@ -44,7 +45,11 @@ def mask_tree(params: Any, cfg: ModelConfig, k: int) -> Dict[str, torch.Tensor]:
             vec = torch.as_tensor(unit_trainable, device=leaf.device)
             mask[name] = vec.reshape((n_units,) + (1,) * (leaf.ndim - 1))
             continue
-        trainable = not (path[0] == "io" and path[1] in _IO_FREEZABLE) or full
+        if path[:2] == ["stack", "prefix"]:
+            trainable = int(path[2]) >= first_unfrozen
+        else:
+            trainable = (not (path[0] == "io" and path[1] in _IO_FREEZABLE)
+                         or full)
         mask[name] = torch.tensor(1.0 if trainable else 0.0,
                                   dtype=torch.float32, device=leaf.device)
     return mask

@@ -22,7 +22,9 @@ def make_train_step(*args, **kwargs):
 
 def make_prefill_step(model: Model, shape: InputShape,
                       max_new_tokens: int = 0):
-    """(params, batch) -> (last logits (B, 1, V), decode caches).
+    """(params, batch) -> (last logits (B, 1, V), decode caches). The
+    batch's ``patch_embeds`` (a vision frontend's) go through to the
+    model with its tokens.
 
     ``long_500k`` windows the global layers' caches by the config's
     ``decode_window``, as the reference does. ``max_new_tokens`` leaves

@@ -3,18 +3,21 @@ parameter tree.
 
 Parameters keep the JAX tree path for path: the port's parameter dict
 maps each dotted path (``"stack.units.b0.attn.wq"``) to a tensor of the
-JAX leaf's shape, in JAX's leaf order (dict keys sorted at every level),
-so that every loop over leaves (``count_active``, the wire accounting)
-adds in the reference's order. The scan-stacked unit leaves keep their
-leading ``n_units`` axis: AdamW's ``ndim >= 2`` decay rule and the
-per-unit freezing mask both read that layout.
+JAX leaf's shape, in JAX's leaf order (dict keys sorted at every level,
+list items by index: ``stack.prefix.2`` before ``stack.prefix.10``), so
+that every loop over leaves (``count_active``, the wire accounting) adds
+in the reference's order. A list's items are the path components that
+are all digits (no dict key of the model trees is). The scan-stacked
+unit leaves keep their leading ``n_units`` axis: AdamW's ``ndim >= 2``
+decay rule and the per-unit freezing mask both read that layout.
 
-The layout is the same for every ported config: the char-LM's units
-hold one block ``b0`` with layer norms, a biased GELU MLP and a
+The layout is the reference's for every ported config: the char-LM's
+units hold one block ``b0`` with layer norms, a biased GELU MLP and a
 ``pos_embed`` table; Gemma2's units hold a local block ``b0`` and a
 global block ``b1``, each with RMS norms (one ``scale`` leaf), the
-``post1`` / ``post2`` norms and a GeGLU MLP, and there is no
-``pos_embed``.
+``post1`` / ``post2`` norms and a GeGLU MLP; an MoE block's ``ffn``
+holds the f32 ``router`` and the expert stacks (n_units, E, d, f);
+DeepSeek-V3's dense lead-in is the list ``stack.prefix``.
 
 ``ParamTree`` is the ``nn.Module`` that holds such a dict, with the same
 dotted names as its parameter names. ``params_from_numpy`` and
@@ -37,7 +40,8 @@ Params = Dict[str, torch.Tensor]
 
 
 def _path_key(name: str):
-    return tuple(name.split("."))
+    return tuple((0, int(part), "") if part.isdigit() else (1, 0, part)
+                 for part in name.split("."))
 
 
 def jax_order(flat: Mapping[str, Any]) -> Dict[str, Any]:
@@ -54,16 +58,15 @@ def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
         if isinstance(value, Mapping):
             out.update(flatten(value, name + "."))
         elif isinstance(value, (list, tuple)):
-            raise NotImplementedError(
-                f"{name}: list-valued subtrees (prefix/suffix layers) are "
-                f"not ported yet")
+            out.update(flatten(dict(enumerate(value)), name + "."))
         else:
             out[name] = value
     return out
 
 
 def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
-    """{dotted path: leaf} -> nested dict (no copies)."""
+    """{dotted path: leaf} -> nested dict, with lists where the keys are
+    list indices (no copies)."""
     tree: Dict[str, Any] = {}
     for name, leaf in flat.items():
         node = tree
@@ -71,7 +74,16 @@ def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
         for p in parents:
             node = node.setdefault(p, {})
         node[last] = leaf
-    return tree
+    return _lists(tree)
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    items = {k: _lists(v) for k, v in node.items()}
+    if items and all(k.isdigit() for k in items):
+        return [items[str(i)] for i in range(len(items))]
+    return items
 
 
 class ParamTree(nn.Module):

@@ -2,9 +2,11 @@
 of tensors, as ``repro.models.layers``).
 
 Ported: the init helpers, layer norm and the Gemma-style RMS norm
-(``1 + scale``), RoPE, the tanh-GELU MLP and the gated GeGLU MLP, GQA
-attention with a sliding window and a tanh softcap, and the decode
-caches (rolling buffers, single-token decode attention).
+(``1 + scale``), RoPE, the gated MLPs (SwiGLU, tanh-GeGLU) and the
+biased ones (tanh-GELU, squared ReLU), GQA attention with q/k/v biases,
+a sliding window and a tanh softcap, DeepSeek's multi-head latent
+attention (MLA) with its absorbed decode, and the decode caches (rolling
+buffers, single-token decode attention).
 
 Attention over a full sequence takes one of two routes. Without a
 gradient (``torch.is_grad_enabled()`` false: the eval, prefill) it goes
@@ -13,9 +15,9 @@ and its plain twin on the CPU. With a gradient it is the dense branch of
 the reference's ``_attend_block`` (plain matmuls and a softmax over each
 q chunk's kv range, masked with -1e30), since the kernel has no
 backward. Decode attention stays plain torch: the JAX package has no
-kernel for it. SwiGLU / squared-ReLU MLPs, q/k/v biases, MLA and the
-kv-chunked online-softmax scan are not ported (ROADMAP queue 1 item
-11).
+kernel for it. The kv-chunked online-softmax scan of the reference's
+training attention and its bidirectional attention are not ported
+(ROADMAP queue 1 item 11b).
 """
 from __future__ import annotations
 
@@ -58,10 +60,11 @@ def embed_init(gen, vocab: int, dim: int, dtype, device):
 # ---------------------------------------------------------------------------
 
 
-def norm_init(cfg: ModelConfig, device):
+def norm_init(cfg: ModelConfig, device, dim: Optional[int] = None):
     """Layer norm (scale 1, bias 0) or the Gemma RMS norm (scale 0,
-    applied as ``1 + scale``), by ``cfg.norm_type``."""
-    dim, dt = cfg.d_model, cfg.param_dtype
+    applied as ``1 + scale``), by ``cfg.norm_type``, over ``dim``
+    (default ``d_model``)."""
+    dim, dt = dim or cfg.d_model, cfg.param_dtype
     if cfg.norm_type == "layer":
         return {"scale": torch.ones((dim,), dtype=dt, device=device),
                 "bias": torch.zeros((dim,), dtype=dt, device=device)}
@@ -111,19 +114,24 @@ def rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def mlp_init(gen, cfg: ModelConfig, device):
-    dm, d_ff, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
-    if cfg.mlp_type == "geglu":
+def mlp_init(gen, cfg: ModelConfig, device, d_ff: Optional[int] = None,
+             d_model: Optional[int] = None):
+    """The gated MLP (``w_gate``, ``w_up``, ``w_down``) for ``swiglu`` and
+    ``geglu``, the biased one (``w_up``, ``b_up``, ``w_down``,
+    ``b_down``) for ``gelu`` and ``relu2``; ``d_ff`` / ``d_model``
+    override the config's widths (MoE's dense layers and shared
+    expert)."""
+    d_ff, dm, dt = d_ff or cfg.d_ff, d_model or cfg.d_model, cfg.param_dtype
+    if cfg.mlp_type in ("swiglu", "geglu"):
         return {"w_gate": dense_init(gen, dm, d_ff, dt, device),
                 "w_up": dense_init(gen, dm, d_ff, dt, device),
                 "w_down": dense_init(gen, d_ff, dm, dt, device)}
-    if cfg.mlp_type == "gelu":
+    if cfg.mlp_type in ("gelu", "relu2"):
         return {"w_up": dense_init(gen, dm, d_ff, dt, device),
                 "b_up": torch.zeros((d_ff,), dtype=dt, device=device),
                 "w_down": dense_init(gen, d_ff, dm, dt, device),
                 "b_down": torch.zeros((dm,), dtype=dt, device=device)}
-    raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported "
-                              f"yet (ROADMAP queue 1 item 11)")
+    raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported")
 
 
 def gelu(x):
@@ -131,12 +139,15 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(p, x):
-    """GeGLU (tanh GELU) when ``p`` has a gate, else the biased GELU
-    MLP."""
-    if "w_gate" in p:
-        return (gelu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    h = gelu(x @ p["w_up"] + p["b_up"])
+def mlp_apply(p, x, cfg: ModelConfig):
+    """SwiGLU (SiLU gate) or GeGLU (tanh GELU gate); squared ReLU
+    (Nemotron) or tanh GELU between the biased projections."""
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        g = x @ p["w_gate"]
+        act = F.silu(g) if cfg.mlp_type == "swiglu" else gelu(g)
+        return (act * (x @ p["w_up"])) @ p["w_down"]
+    h = x @ p["w_up"] + p["b_up"]
+    h = torch.square(F.relu(h)) if cfg.mlp_type == "relu2" else gelu(h)
     return h @ p["w_down"] + p["b_down"]
 
 
@@ -176,12 +187,13 @@ def _attend_block(q, k, v, qpos, kpos, scale, softcap, window):
 
 def blockwise_attention(q, k, v, *, q_chunk: int,
                         window: Optional[int] = None,
-                        softcap: Optional[float] = None):
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None):
     """Causal (optionally windowed) attention over q chunks, each chunk
-    attending to its exact kv range. q: (B, S, H, D), k/v: (B, S, KVH,
-    D)."""
+    attending to its exact kv range. q: (B, S, H, Dq), k: (B, S, KVH,
+    Dq), v: (B, S, KVH, Dv); ``scale`` defaults to 1/sqrt(Dq)."""
     b, s, h, d = q.shape
-    scale = 1.0 / math.sqrt(d)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     c = min(q_chunk, s)
     outs = []
     for q0 in range(0, s, c):
@@ -223,18 +235,22 @@ def attn_init(gen, cfg: ModelConfig, device):
     dm = cfg.d_model
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = cfg.param_dtype
+    p = {"wq": dense_init(gen, dm, h * hd, dt, device),
+         "wk": dense_init(gen, dm, kvh * hd, dt, device),
+         "wv": dense_init(gen, dm, kvh * hd, dt, device),
+         "wo": dense_init(gen, h * hd, dm, dt, device)}
     if cfg.qkv_bias:
-        raise NotImplementedError("q/k/v biases are not ported yet (ROADMAP "
-                                  "queue 1 item 11)")
-    return {"wq": dense_init(gen, dm, h * hd, dt, device),
-            "wk": dense_init(gen, dm, kvh * hd, dt, device),
-            "wv": dense_init(gen, dm, kvh * hd, dt, device),
-            "wo": dense_init(gen, h * hd, dm, dt, device)}
+        for name, width in (("bq", h * hd), ("bk", kvh * hd),
+                            ("bv", kvh * hd)):
+            p[name] = torch.zeros((width,), dtype=dt, device=device)
+    return p
 
 
 def _qkv(p, x, cfg: ModelConfig):
     b, s, _ = x.shape
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
             k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
             v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
@@ -288,17 +304,146 @@ def attn_cache_init(cfg: ModelConfig, batch: int, s_buf: int, device):
             "index": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def attn_cache_from_full(k, v, s_buf: int):
-    """A decode cache from prefill K/V (B, S, KVH, D): the trailing
-    ``s_buf`` tokens, rolled so the newest sits in slot (S-1) % s_buf
-    (the rolling-write convention of ``attn_apply_decode``), or the whole
-    prefix zero-padded to ``s_buf``."""
-    s = k.shape[1]
-    index = torch.tensor(s, dtype=torch.int32, device=k.device)
+def _buffer_from_full(t, s_buf: int):
+    """One prefill tensor (B, S, ...) -> its ``s_buf``-slot decode buffer:
+    the trailing ``s_buf`` tokens rolled so the newest sits in slot
+    (S-1) % s_buf (the rolling-write convention of the decode steps), or
+    the whole prefix zero-padded to ``s_buf``."""
+    s = t.shape[1]
     if s >= s_buf:
-        shift = s % s_buf
-        return {"k": torch.roll(k[:, s - s_buf:], shift, dims=1),
-                "v": torch.roll(v[:, s - s_buf:], shift, dims=1),
-                "index": index}
-    pad = (0, 0, 0, 0, 0, s_buf - s)
-    return {"k": F.pad(k, pad), "v": F.pad(v, pad), "index": index}
+        return torch.roll(t[:, s - s_buf:], s % s_buf, dims=1)
+    return F.pad(t, (0, 0) * (t.ndim - 2) + (0, s_buf - s))
+
+
+def attn_cache_from_full(k, v, s_buf: int):
+    """A decode cache from prefill K/V (B, S, KVH, D), see
+    ``_buffer_from_full``."""
+    return {"k": _buffer_from_full(k, s_buf), "v": _buffer_from_full(v, s_buf),
+            "index": torch.tensor(k.shape[1], dtype=torch.int32,
+                                  device=k.device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen, cfg: ModelConfig, device):
+    m, h, dm, dt = cfg.mla, cfg.num_heads, cfg.d_model, cfg.param_dtype
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": dense_init(gen, dm, m.q_lora_rank, dt, device),
+        "q_norm": norm_init(cfg, device, m.q_lora_rank),
+        "w_uq": dense_init(gen, m.q_lora_rank, h * qk_head, dt, device),
+        "w_dkv": dense_init(gen, dm, m.kv_lora_rank, dt, device),
+        "kv_norm": norm_init(cfg, device, m.kv_lora_rank),
+        "w_uk": dense_init(gen, m.kv_lora_rank, h * m.qk_nope_head_dim, dt,
+                           device),
+        "w_uv": dense_init(gen, m.kv_lora_rank, h * m.v_head_dim, dt, device),
+        "w_kr": dense_init(gen, dm, m.qk_rope_head_dim, dt, device),
+        "wo": dense_init(gen, h * m.v_head_dim, dm, dt, device),
+    }
+
+
+def _mla_q(p, x, positions, cfg: ModelConfig):
+    m = cfg.mla
+    b, s, _ = x.shape
+    q_lat = norm_apply(p["q_norm"], x @ p["w_dq"])
+    q = (q_lat @ p["w_uq"]).reshape(b, s, cfg.num_heads,
+                                    m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_scale(m) -> float:
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def mla_apply_full(p, x, positions, cfg: ModelConfig):
+    """Train / eval / prefill: the latents expanded to per-head k (nope
+    and the shared RoPE key) and v, causal attention at scale
+    1/sqrt(qk_nope + qk_rope) -> (out, (c_kv, k_rope)), the decode
+    cache's two latents.
+
+    Without a gradient the attention is the flash kernel, whose contract
+    has one head width for q, k and v: v (``v_head_dim``, 128 in
+    DeepSeek-V3) is zero-padded to the q/k width (192) and the output
+    cut back. The padded columns of v only ever add exact zeros, so the
+    kept columns are the same function."""
+    m, h = cfg.mla, cfg.num_heads
+    b, s, _ = x.shape
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    c_kv = norm_apply(p["kv_norm"], x @ p["w_dkv"])           # (B,S,r_kv)
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, m.qk_nope_head_dim)
+    vv = (c_kv @ p["w_uv"]).reshape(b, s, h, m.v_head_dim)
+    k_rope = rope((x @ p["w_kr"])[:, :, None, :], positions, cfg.rope_theta)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_head_dim)],
+                  dim=-1)
+    scale = _mla_scale(m)
+    if torch.is_grad_enabled():
+        out = blockwise_attention(q, k, vv, softcap=cfg.attn_softcap,
+                                  q_chunk=cfg.q_chunk, scale=scale)
+    else:
+        pad = q.shape[-1] - m.v_head_dim
+        if pad < 0:
+            raise NotImplementedError("MLA with v_head_dim wider than "
+                                      "qk_nope + qk_rope")
+        out = ops.flash_attention(q, k, F.pad(vv, (0, pad)), causal=True,
+                                  softcap=cfg.attn_softcap,
+                                  scale=scale)[..., :m.v_head_dim]
+    return out.reshape(b, s, -1) @ p["wo"], (c_kv, k_rope[:, :, 0, :])
+
+
+def mla_apply_decode(p, x, cache, cfg: ModelConfig):
+    """Absorbed-matmul MLA decode: W_UK folds into the query and W_UV
+    into the output, so scores and context live in the latent space and
+    the cache holds only ``c_kv`` (r_kv) and ``k_rope`` per token.
+    ``cache`` = {"c_kv": (B, S_buf, r_kv), "k_rope": (B, S_buf, d_rope),
+    "index": 0-dim int32}, updated in place as ``attn_apply_decode``
+    updates its own."""
+    m, h = cfg.mla, cfg.num_heads
+    b = x.shape[0]
+    idx = cache["index"]
+    pos = idx.expand(b, 1)
+    q_nope, q_rope = _mla_q(p, x, pos, cfg)                   # (B,1,H,*)
+    c_new = norm_apply(p["kv_norm"], x @ p["w_dkv"])          # (B,1,r)
+    kr_new = rope((x @ p["w_kr"])[:, :, None, :], pos,
+                  cfg.rope_theta)[:, :, 0, :]
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    s_buf = c_kv.shape[1]
+    slot = (idx % s_buf).reshape(1).long()
+    c_kv.index_copy_(1, slot, c_new.to(c_kv.dtype))
+    k_rope.index_copy_(1, slot, kr_new.to(k_rope.dtype))
+    idx.add_(1)
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)      # absorb W_UK
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_lat, c_kv)
+              + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope)
+              ).to(torch.float32) * _mla_scale(m)
+    scores = _softcap(scores, cfg.attn_softcap)
+    age = ((idx - 1) % s_buf - torch.arange(s_buf, device=x.device)) % s_buf
+    scores = scores.masked_fill(~(age < torch.clamp(idx, max=s_buf)), -1e30)
+    w = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+    ctx_lat = torch.einsum("bhqs,bsr->bqhr", w, c_kv)          # (B,1,H,r)
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    ctx = torch.einsum("bqhr,rhd->bqhd", ctx_lat, w_uv)       # absorb W_UV
+    return ctx.reshape(b, 1, -1) @ p["wo"], cache
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, s_buf: int, device):
+    m, dt = cfg.mla, cfg.compute_dtype
+    return {"c_kv": torch.zeros((batch, s_buf, m.kv_lora_rank), dtype=dt,
+                                device=device),
+            "k_rope": torch.zeros((batch, s_buf, m.qk_rope_head_dim),
+                                  dtype=dt, device=device),
+            "index": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def mla_cache_from_full(c_kv, k_rope, s_buf: int):
+    """The decode cache from prefill's latents (B, S, r_kv) and RoPE keys
+    (B, S, d_rope), see ``_buffer_from_full``."""
+    return {"c_kv": _buffer_from_full(c_kv, s_buf),
+            "k_rope": _buffer_from_full(k_rope, s_buf),
+            "index": torch.tensor(c_kv.shape[1], dtype=torch.int32,
+                                  device=c_kv.device)}

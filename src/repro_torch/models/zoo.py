@@ -1,9 +1,11 @@
-"""Model zoo: the decoder-only ``Model`` (the char-LM and Gemma2).
+"""Model zoo: the decoder-only ``Model`` of every ported architecture
+(the char-LM, Gemma2, and the attention-based zoo: dense, MoE, MLA and
+the vision-prefixed PaliGemma).
 
 ``build(cfg)`` returns a ``Model``:
 
     init(gen, device=None) -> ParamTree
-    train_loss(params, batch) -> (loss, metrics)
+    train_loss(params, batch) -> (ce + aux, {"ce", "aux"})
     prefill(params, batch, use_decode_window=False, max_new_tokens=0)
         -> (last_logits (B, 1, V) fp32, decode caches)
     decode_step(params, caches, tokens (B, 1)) -> (logits (B, 1, V), caches)
@@ -12,14 +14,15 @@
 
 ``params`` is a ``ParamTree`` or the parameter dict (dotted JAX paths ->
 tensors, see ``models.convert``). A batch holds integer ``tokens`` (and
-``targets`` for the loss) of shape (B, S). The embedding may be tied
-(the unembedding is ``embed.T``), scaled by sqrt(d) (Gemma) and joined by
-learned positions (the char-LM). The loss is the mean cross-entropy over
-all tokens (the reference's chunked CE is one chunk at the char-LM's
-size) plus an aux loss of 0. Prefill runs without a gradient, so its
-attention is the flash kernel on the card; ``decode_step`` updates the
-caches in place and returns them. Loss masks, the frontends and the
-encoder-decoder model are not ported yet.
+``targets`` for the loss) of shape (B, S), optionally a ``loss_mask``
+(B, S) and, for a vision frontend, ``patch_embeds`` (B, P, E_f): those
+are projected by ``frontend_proj`` and prepended to the tokens, and cut
+again before the loss. The embedding may be tied (the unembedding is
+``embed.T``) or not (``head``), scaled by sqrt(d) (Gemma) and joined by
+learned positions (the char-LM). Prefill runs without a gradient, so
+its attention is the flash kernel on the card; ``decode_step`` updates
+the caches in place and returns them. The encoder-decoder model is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -33,18 +36,31 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.moe import moe_param_count
 from repro_torch.models.convert import ParamTree, as_params, flatten, unflatten
 
 
-def ce_loss(x, w_unembed, targets, softcap: Optional[float] = None):
+def ce_loss(x, w_unembed, targets, softcap: Optional[float] = None,
+            mask=None):
     """x: (B,S,D), w_unembed: (D,V), targets: (B,S) -> mean CE in fp32
-    (over softcapped logits when ``softcap`` is set)."""
+    (over softcapped logits when ``softcap`` is set), over the tokens
+    where ``mask`` (B,S) is set when it is given.
+
+    The reference's ``chunked_ce_loss`` takes the same masked mean,
+    sum((lse - ll) * mask) / max(sum(mask), 1), over sequence chunks so
+    that no (B, S, V) logits tensor is live at once under XLA; the
+    chunks' partial sums add up to this sum (in another order). Without
+    a mask the mean is over every token: the reference's all-ones mask
+    gives the same sum and count exactly."""
     logits = (x @ w_unembed).to(torch.float32)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return torch.sum(lse - ll) / targets.numel()
+    if mask is None:
+        return torch.sum(lse - ll) / targets.numel()
+    mask = mask.to(torch.float32)
+    return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 def io_init(gen, cfg: ModelConfig, device):
@@ -57,6 +73,9 @@ def io_init(gen, cfg: ModelConfig, device):
     if cfg.learned_pos_emb:
         p["pos_embed"] = L.embed_init(gen, cfg.learned_pos_emb, cfg.d_model,
                                       cfg.param_dtype, device)
+    if cfg.frontend is not None:
+        p["frontend_proj"] = L.dense_init(gen, cfg.frontend.embed_dim,
+                                          cfg.d_model, cfg.param_dtype, device)
     return p
 
 
@@ -126,33 +145,45 @@ class Model:
         norm's ``1 + scale``)."""
         return ParamTree(flatten(self._init_tree(gen, resolve_device(device))))
 
-    def _forward(self, params, tokens, cache_len: Optional[int] = None,
+    def _forward(self, params, batch, cache_extra: Optional[int] = None,
                  use_decode_window: bool = False):
+        """Embed (patch tokens first), run the stack and the final norm ->
+        (param tree, x, caches with ``cache_extra`` slots past the
+        context, or None without it, aux loss)."""
         cfg = self.cfg
         p = unflatten(as_params(params))
-        x = embed_tokens(p["io"], tokens, cfg)
+        x = embed_tokens(p["io"], batch["tokens"], cfg)
+        if cfg.frontend is not None and "patch_embeds" in batch:
+            patches = (batch["patch_embeds"].to(cfg.compute_dtype)
+                       @ p["io"]["frontend_proj"])
+            x = torch.cat([patches, x], dim=1)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
-        x, caches = T.stack_apply_full(p["stack"], x, positions, cfg,
-                                       cache_len, use_decode_window)
-        return p, L.norm_apply(p["io"]["final_norm"], x), caches
+        cache_len = None if cache_extra is None else s + cache_extra
+        x, caches, aux = T.stack_apply_full(p["stack"], x, positions, cfg,
+                                            cache_len, use_decode_window)
+        return p, L.norm_apply(p["io"]["final_norm"], x), caches, aux
 
     def train_loss(self, params, batch):
+        """-> (ce + aux, {"ce", "aux"}): the mean cross-entropy over the
+        text tokens (under ``loss_mask`` when the batch has one) and the
+        MoE load-balance loss summed over the layers (0.0 without MoE)."""
         cfg = self.cfg
-        p, x, _ = self._forward(params, batch["tokens"])
+        p, x, _, aux = self._forward(params, batch)
+        if cfg.frontend is not None:
+            x = x[:, cfg.frontend.num_prefix_tokens:]
         w = unembed_matrix(p["io"], cfg).to(cfg.compute_dtype)
-        ce = ce_loss(x, w, batch["targets"], cfg.final_softcap)
-        return ce, {"ce": ce, "aux": 0.0}
+        ce = ce_loss(x, w, batch["targets"], cfg.final_softcap,
+                     batch.get("loss_mask"))
+        return (ce if cfg.moe is None else ce + aux), {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, params, batch, use_decode_window: bool = False,
                 max_new_tokens: int = 0):
         """-> (logits of the last position (B, 1, V) fp32, decode caches
         with room for ``max_new_tokens`` more tokens in global layers)."""
-        tokens = batch["tokens"]
-        p, x, caches = self._forward(params, tokens,
-                                     tokens.shape[1] + max_new_tokens,
-                                     use_decode_window)
+        p, x, caches, _ = self._forward(params, batch, max_new_tokens,
+                                        use_decode_window)
         return logits_fn(p["io"], x[:, -1:], self.cfg), caches
 
     @torch.no_grad()
@@ -174,11 +205,19 @@ class Model:
                                   device=resolve_device(device))
 
     def param_count(self) -> Dict[str, int]:
-        """Dense models: every parameter is active. Counted from shapes
-        on the meta device, so nothing is allocated."""
+        """Counted from shapes on the meta device, so nothing is
+        allocated. Every parameter is active but the experts an MoE layer
+        does not route a token to (``moe_param_count``)."""
+        cfg = self.cfg
         tree = self._init_tree(None, torch.device("meta"))
         total = sum(math.prod(t.shape) for t in flatten(tree).values())
-        return {"total": total, "active": total}
+        active = total
+        if cfg.moe is not None:
+            per_layer = moe_param_count(cfg)
+            n_moe = sum(T.block_spec(cfg, i).use_moe
+                        for i in range(cfg.num_layers))
+            active = total - n_moe * (per_layer["total"] - per_layer["active"])
+        return {"total": total, "active": active}
 
 
 def build(cfg: ModelConfig) -> Model:

@@ -1,7 +1,8 @@
 """Optimizers as plain functions on the parameter dict: SGD, momentum,
 Adam and AdamW, each an ``(init, update)`` pair with
 ``update(grads, state, params) -> (updates, state)``, the convention of
-``repro.optim.optimizers``.
+``repro.optim.optimizers``; and its tree utilities ``apply_updates``,
+``global_norm`` and ``clip_by_global_norm``.
 
 Not ``torch.optim``: that one applies weight decay to every parameter it
 holds (frozen leaves included) and orders the bias correction
@@ -115,3 +116,27 @@ def make_optimizer(name: str, lr: float, weight_decay: float = 0.0
         return adamw(lr, weight_decay=weight_decay,
                      moment_dtype=torch.bfloat16)
     raise ValueError(name)
+
+
+def apply_updates(params: Tensors, updates: Tensors) -> Tensors:
+    """``params + updates``, each update cast to its parameter's dtype."""
+    return {k: p + updates[k].to(p.dtype) for k, p in params.items()}
+
+
+def global_norm(tree: Tensors) -> torch.Tensor:
+    """The L2 norm of every leaf together, in fp32, the leaves' squared
+    sums added in the dict's order (the reference adds in JAX's leaf
+    order, which the port's parameter dicts keep)."""
+    total = 0
+    for leaf in tree.values():
+        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads: Tensors, max_norm: float):
+    """-> (grads scaled by min(1, max_norm / (norm + 1e-9)), norm). The
+    fp32 scale promotes a narrower gradient to fp32, as in JAX."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return {k: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale
+            for k, g in grads.items()}, norm

@@ -17,7 +17,8 @@ Then the port alone: masked against sync within the reference's own
 bounds (1e-6 train loss, 2e-3 val loss), the entry points
 (``run_federated``, ``launch.train.main``) writing history and
 checkpoint, the pieces earlier slices refused now building and running,
-and the model configs not ported yet raising ``NotImplementedError``.
+and a model config not ported yet (the recurrent RecurrentGemma) raising
+``NotImplementedError``.
 """
 import json
 
@@ -279,7 +280,7 @@ def _train(setup, monkeypatch, tmp, *argv):
 def _entry_arch(setup, monkeypatch, tmp):
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-        get_config("qwen2-72b")
+        get_config("recurrentgemma-2b")
 
 
 def _entry_stragglers(setup, monkeypatch, tmp):
@@ -307,9 +308,9 @@ def _entry_train_batched(setup, monkeypatch, tmp):
     _entry_train_batched,
 ], ids=["arch", "stragglers", "train_server_opt", "train_batched"])
 def test_unported_entry_points_raise(setup, call, tmp_path, monkeypatch):
-    """The model zoo's other configs still raise (ROADMAP queue 1 item
-    11); the entry points the earlier slices refused now run: deadline
-    stragglers from ``make_dynamics``, and ``launch.train`` with
-    ``--server-opt`` and ``--executor batched`` for one round on the CPU
-    at the tiny size."""
+    """The model zoo's recurrent and encoder-decoder configs still raise
+    (ROADMAP queue 1 item 11b; here RecurrentGemma); the entry points the
+    earlier slices refused now run: deadline stragglers from
+    ``make_dynamics``, and ``launch.train`` with ``--server-opt`` and
+    ``--executor batched`` for one round on the CPU at the tiny size."""
     call(setup, monkeypatch, tmp_path)

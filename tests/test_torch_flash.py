@@ -302,12 +302,12 @@ class TestCudaFlash:
                      dtype)
 
     @pytest.mark.parametrize("g", [1, 2])
-    @pytest.mark.parametrize("d", [24, 64, 96, 128, 256])
+    @pytest.mark.parametrize("d", [24, 64, 96, 128, 192, 256])
     @pytest.mark.parametrize("s", [1, 15, 16, 63, 64, 65, 127, 129, 1000])
     def test_mma_bf16_tile_edges(self, card, s, d, g):
         """The tensor-core variant around its 16-row, 64-row and 32/64-key
         tiles, for every mask option, at each padded head width (24 -> 32,
-        64, 96 -> 128, 128, 256)."""
+        64, 96 -> 128, 128, 192 (MLA's q/k width) -> 256, 256)."""
         q, k, v = (t.to(card) for t in inputs(s * 3 + d + g, 1, s, 2 * g, 2,
                                               d, "bfloat16"))
         for causal, window, softcap in self.OPTIONS:

@@ -48,9 +48,11 @@ def jax_params(jcfg, seed: int = 0):
 
 
 def flat_paths(tree, prefix=""):
-    """JAX tree -> {dotted path: leaf}, in JAX's own leaf order."""
+    """JAX tree -> {dotted path: leaf}, in JAX's own leaf order (a list
+    item's component is its index)."""
     leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
-    return {".".join(str(k.key) for k in path): leaf for path, leaf in leaves}
+    return {".".join(str(getattr(k, "key", getattr(k, "idx", None)))
+                     for k in path): leaf for path, leaf in leaves}
 
 
 #: ``tests/test_fl_clock.py``'s engine setting (``tiny_pair`` overrides)
