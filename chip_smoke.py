@@ -43,20 +43,26 @@ before the final line:
    both timed at one full-width round's fold (C = 6, n = 1,900,800) in
    turns with ``torch.sum`` over int64; and the host work of one masked
    round (fixed point, pairwise masks, the fold's copies). The flash-attention
-   kernel against its plain version over f32 / bf16, D in {24, 128, 192,
-   256} (192: MLA's q/k width),
-   GQA groups {1, 2, 4}, causal or not, window {None, 64, 4096}, softcap
-   {None, 50}, S in {1, 7, 128, 129, 1000, 8192} and B in {1, 2} (B = 1
-   only at S = 8192), at the tolerances below; then its time at one
-   Gemma2 global and one local layer (B = 1, S = 8192), one Phi-3.5-MoE
-   layer (S = 8192, H 32 over KVH 8, D 128), one DeepSeek-V3 MLA layer
-   (S = 1,024, H = KVH = 128, D 192) and at the char-LM eval's shape (B
-   = 64, S = 32, H = 8, D = 24; and S = 128), beside its plain version,
-   the bound and, where no softcap makes it another function (the
-   char-LM, Phi, MLA), SDPA; at Gemma2's shapes SDPA without the
-   softcap (another function,
-   so ``sdpa_no_softcap_ms``, never ``library_ms``) and the SM clock and
-   power draw (nvidia-smi) right after the timed window.
+   kernel against its plain version over f32 / bf16, D in {24, 64, 128,
+   192, 256} (64: SeamlessM4T's; 192: MLA's q/k width), GQA groups {1,
+   2, 4, 10} (10: RecurrentGemma's 10 heads over 1, at S <= 1,000),
+   causal or not, window {None, 64, 4096}, softcap {None, 50}, S in {1,
+   7, 128, 129, 1000, 8192} and B in {1, 2} (B = 1 only at S = 8192),
+   and non-causal with q and k of different lengths (the
+   cross-attention: Sq in {1, 7, 129} against Sk in {128, 1000, 4096}),
+   at the tolerances below; then its time at one Gemma2 global and one
+   local layer (B = 1, S = 8192), one Phi-3.5-MoE layer (S = 8192, H 32
+   over KVH 8, D 128), one DeepSeek-V3 MLA layer (S = 1,024, H = KVH =
+   128, D 192), one RecurrentGemma local layer (S = 8,192, H 10 over 1,
+   D 256, window 2,048), one SeamlessM4T encoder layer (S = 4,096, H 16,
+   D 64, non-causal) and its decode cross-attention (Sq 1 over Sk
+   4,096), and at the char-LM eval's shape (B = 64, S = 32, H = 8, D =
+   24; and S = 128), beside its plain version, the bound and, where no
+   softcap makes it another function (all but Gemma2's), SDPA (a window
+   as a boolean mask); at Gemma2's shapes SDPA without the softcap
+   (another function, so ``sdpa_no_softcap_ms``, never ``library_ms``)
+   and the SM clock and power draw (nvidia-smi) right after the timed
+   window.
 3. rounds: the full-width ``charlm-shakespeare`` model through five
    CAFL-L client rounds on the card (policy -> ``train_client`` x 6 ->
    ``aggregate`` -> ``apply_delta`` -> usage -> ``dual_update`` ->
@@ -117,10 +123,23 @@ before the final line:
    capacity is the group size (8 and 32), since a one-token decode never
    drops a token; each line prints the drop share at 1.25, the routing
    flips of each check per MoE layer, and the peak memory of its phase.
-   Bound: 2 x 2^-8 x sqrt(2 L) for L layers. Then ``serve_smoke``: each
-   of the six new configs (Qwen2, Mistral-Large, Minitron, PaliGemma,
-   Phi-3.5-MoE, DeepSeek-V3) at its SMOKE size, f32, prefill on the card
-   against the CPU from the same weights, within 1e-4.
+   Then the recurrent and encoder-decoder configs through the same
+   path, full width and depth: ``serve_rec``, RecurrentGemma-2B (26
+   layers: 18 RG-LRU and 8 local attention, 2.9 B parameters) on one
+   8,192-token prompt (the local caches roll from the first step);
+   ``serve_xlstm``, xLSTM-1.3B (48 blocks, 3.6 B parameters, no
+   attention: no kernel and no check (a)) on one 2,048-token prompt (each
+   sLSTM layer steps once per token on the host); ``serve_encdec``,
+   SeamlessM4T-medium (12 + 12 layers) on ``synthetic_batch(cfg, 1,
+   8192)``, 4,096 source frames and 4,096 target tokens, whose decode
+   launches the kernel once per layer and step (the cross-attention at
+   Sq 1); 16 decode steps each. Every serving line carries the decode
+   step's floor: weights and decode caches read once at 3.35 TB/s.
+   Bound: 2 x 2^-8 x sqrt(2 L) for L layers (the encoder's counted).
+   Then ``serve_smoke``: each zoo config but Gemma2 (Qwen2,
+   Mistral-Large, Minitron, PaliGemma, Phi-3.5-MoE, DeepSeek-V3,
+   RecurrentGemma, xLSTM, SeamlessM4T) at its SMOKE size, f32, prefill
+   on the card against the CPU from the same weights, within 1e-4.
 7. a ``kernel_off_path`` line for the limb entry of the masked sum (all
    the summary's keys; no main path runs it, so its launches must be 0),
    the ``{"kernels": [...]}`` summary of the main paths' kernels, the
@@ -149,6 +168,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -203,11 +223,17 @@ CARD_RATES = {
 #: the flash kernel's sweep (see the docstring); heads are KVH = 2 times
 #: the group size
 FLASH_DTYPES = ("float32", "bfloat16")
-FLASH_DIMS = (24, 128, 192, 256)
-FLASH_GROUPS = (1, 2, 4)
+FLASH_DIMS = (24, 64, 128, 192, 256)
+FLASH_GROUPS = (1, 2, 4, 10)
+#: the groups at S = 8,192 (group 10, RecurrentGemma's 10 heads over 1,
+#: runs at S <= 1,000 only, to hold the sweep's time)
+FLASH_GROUPS_LONG = (1, 2, 4)
 FLASH_MASKS = [(causal, window, softcap) for causal in (True, False)
                for window in (None, 64, 4096) for softcap in (None, 50.0)]
 FLASH_LENGTHS = (1, 7, 128, 129, 1000, 8192)
+#: non-causal pairs with q and k of different lengths (the
+#: cross-attention: Sq 4,096 in prefill and 1 in decode against Sk 4,096)
+FLASH_CROSS = [(sq, sk) for sq in (1, 7, 129) for sk in (128, 1000, 4096)]
 #: kernel vs plain version: f32 within 2e-5 at unit-scale inputs (both
 #: fp32, summed in other orders); bf16 within one bf16 ulp of the larger
 #: magnitude plus that f32 bound (both round an fp32 result once; the f32
@@ -249,11 +275,30 @@ SERVE_MLA = dict(
             "layer: 31 GB of bf16 weights); prefill_32k (B=32, S=32,768) "
             "cut to one MoE group (B=1, S=1,024); capacity factor 1.25 -> "
             "32 for the decode checks only; widths unchanged")
+#: the recurrent and encoder-decoder serving runs: full width and depth
+SERVE_REC = dict(
+    arch="recurrentgemma-2b", phase="serve_rec", prompt_len=8192, steps=16,
+    reduces="prefill_32k (B=32, S=32,768): batch and length cut; all 26 "
+            "layers, widths unchanged")
+SERVE_XLSTM = dict(
+    arch="xlstm-1.3b", phase="serve_xlstm", prompt_len=2048, steps=16,
+    check_dtype=torch.float32,
+    reduces="prefill_32k (B=32, S=32,768): batch and length cut, the "
+            "length to 2,048 because each sLSTM layer steps once per token "
+            "on the host; all 48 blocks, widths unchanged")
+SERVE_ENCDEC = dict(
+    arch="seamless-m4t-medium", phase="serve_encdec", prompt_len=4096,
+    steps=16,
+    reduces="prefill_32k (B=32, S=32,768): batch and length cut (S = 8,192 "
+            "split as the reference's synthetic batch splits it: 4,096 "
+            "source frames, 4,096 target tokens); all 12 + 12 layers, widths "
+            "unchanged")
 #: the serve_smoke phase: each new config at its SMOKE size, f32, card
 #: against CPU, within this share of each tensor's largest magnitude
 #: (fp32 on both, sums in other orders; no TF32)
 SMOKE_ARCHS = ("qwen2-72b", "mistral-large-123b", "minitron-8b",
-               "paligemma-3b", "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
+               "paligemma-3b", "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b",
+               "recurrentgemma-2b", "xlstm-1.3b", "seamless-m4t-medium")
 SMOKE_CARD_RTOL = 1e-4
 #: |loss(card) - loss(cpu)| / |loss(cpu)| allowed for one microbatch:
 #: fp32 on both, sums taken in another order (no TF32 on the card)
@@ -785,10 +830,12 @@ def masked_round_host(dev, model) -> dict:
             "mean_max_abs_err": err}
 
 
-def flash_inputs(gen, b, s, h, kvh, d, dtype, dev):
-    """Unit-normal q (B,S,H,D), k and v (B,S,KVH,D) on the card."""
-    return [torch.randn((b, s, heads, d), generator=gen, device=dev).to(
-        getattr(torch, dtype)) for heads in (h, kvh, kvh)]
+def flash_inputs(gen, b, s, h, kvh, d, dtype, dev, sk=None):
+    """Unit-normal q (B,S,H,D), k and v (B,Sk,KVH,D) on the card (Sk = S
+    unless given)."""
+    sk = s if sk is None else sk
+    return [torch.randn((b, n, heads, d), generator=gen, device=dev).to(
+        getattr(torch, dtype)) for n, heads in ((s, h), (sk, kvh), (sk, kvh))]
 
 
 def flash_gap(got, want, dtype: str):
@@ -806,33 +853,49 @@ def flash_gap(got, want, dtype: str):
 
 def check_flash(dev) -> dict:
     """``flash_attention_bhsd`` against its plain version on the card over
-    the sweep; fails on any value outside the bound. Returns the largest
-    |kernel - plain| per dtype and the number of cases."""
+    the sweep and the non-causal Sq != Sk pairs; fails on any value
+    outside the bound. Returns the largest |kernel - plain| per dtype
+    and the number of cases."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(21)
     worst = dict.fromkeys(FLASH_DTYPES, 0.0)
     cases = 0
     t0 = time.perf_counter()
+
+    def hold(q, k, v, what, **kw):
+        nonlocal cases
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        dtype = str(q.dtype).split(".")[-1]
+        gap, ok = flash_gap(got, want, dtype)
+        worst[dtype] = max(worst[dtype], gap)
+        cases += 1
+        check(got.dtype == q.dtype and ok,
+              f"flash_attention_bhsd differs at {what} {dtype} {kw}: max "
+              f"|gap| {gap}")
+
     for s in FLASH_LENGTHS:
         for b in ((1,) if s == 8192 else (1, 2)):
             for dtype in FLASH_DTYPES:
                 for d in FLASH_DIMS:
-                    for g in FLASH_GROUPS:
+                    for g in (FLASH_GROUPS_LONG if s > 1000
+                              else FLASH_GROUPS):
                         q, k, v = flash_inputs(gen, b, s, 2 * g, 2, d, dtype,
                                                dev)
                         for causal, window, softcap in FLASH_MASKS:
-                            kw = dict(causal=causal, window=window,
-                                      softcap=softcap)
-                            got = ops.flash_attention(q, k, v, **kw)
-                            want = ref.flash_attention_ref(q, k, v, **kw)
-                            torch.cuda.synchronize()
-                            gap, ok = flash_gap(got, want, dtype)
-                            worst[dtype] = max(worst[dtype], gap)
-                            cases += 1
-                            check(got.dtype == q.dtype and ok,
-                                  f"flash_attention_bhsd differs at B={b} "
-                                  f"S={s} D={d} g={g} {dtype} {kw}: max "
-                                  f"|gap| {gap}")
+                            hold(q, k, v, f"B={b} S={s} D={d} g={g}",
+                                 causal=causal, window=window,
+                                 softcap=softcap)
+    for sq, sk in FLASH_CROSS:
+        for dtype in FLASH_DTYPES:
+            for d in FLASH_DIMS:
+                for g in FLASH_GROUPS:
+                    q, k, v = flash_inputs(gen, 1, sq, 2 * g, 2, d, dtype,
+                                           dev, sk=sk)
+                    for softcap in (None, 50.0):
+                        hold(q, k, v, f"Sq={sq} Sk={sk} D={d} g={g}",
+                             causal=False, softcap=softcap)
     return {"phase": "flash_check", "cases": cases,
             "seconds": time.perf_counter() - t0, "max_abs_err": worst,
             "f32_atol": FLASH_F32_ATOL, "bf16_bound": "1 bf16 ulp + f32_atol"}
@@ -847,31 +910,44 @@ def flash_pairs(sq: int, sk: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-#: (label, B, S, H, KVH, D, dtype, window, softcap) at the main path's
-#: shapes: Gemma2's global and local layers, a Phi-3.5-MoE layer and a
-#: DeepSeek-V3 MLA layer in prefill, and the char-LM eval (its FL
-#: config's seq_len 32; also at FLConfig's default 128)
+#: (label, B, Sq, Sk, H, KVH, D, dtype, causal, window, softcap) at the
+#: main path's shapes: Gemma2's global and local layers, a Phi-3.5-MoE
+#: layer, a DeepSeek-V3 MLA layer, a RecurrentGemma local layer, a
+#: SeamlessM4T encoder layer (also its prefill cross-attention's shape)
+#: in prefill, SeamlessM4T's cross-attention in decode (one query over
+#: 4,096 source frames), and the char-LM eval (its FL config's seq_len
+#: 32; also at FLConfig's default 128)
 FLASH_TIMED = (
-    ("gemma2 global layer", 1, 8192, 16, 8, 256, "bfloat16", None, 50.0),
-    ("gemma2 local layer", 1, 8192, 16, 8, 256, "bfloat16", 4096, 50.0),
-    ("phi3.5-moe layer", 1, 8192, 32, 8, 128, "bfloat16", None, None),
-    ("deepseek-v3 mla layer, v padded", 1, 1024, 128, 128, 192, "bfloat16",
-     None, None),
-    ("charlm eval", 64, 32, 8, 8, 24, "float32", None, None),
-    ("charlm eval, S = 128", 64, 128, 8, 8, 24, "float32", None, None),
+    ("gemma2 global layer", 1, 8192, 8192, 16, 8, 256, "bfloat16", True,
+     None, 50.0),
+    ("gemma2 local layer", 1, 8192, 8192, 16, 8, 256, "bfloat16", True,
+     4096, 50.0),
+    ("phi3.5-moe layer", 1, 8192, 8192, 32, 8, 128, "bfloat16", True, None,
+     None),
+    ("deepseek-v3 mla layer, v padded", 1, 1024, 1024, 128, 128, 192,
+     "bfloat16", True, None, None),
+    ("recurrentgemma local layer", 1, 8192, 8192, 10, 1, 256, "bfloat16",
+     True, 2048, None),
+    ("seamless-m4t encoder layer", 1, 4096, 4096, 16, 16, 64, "bfloat16",
+     False, None, None),
+    ("seamless-m4t decode cross-attention", 1, 1, 4096, 16, 16, 64,
+     "bfloat16", False, None, None),
+    ("charlm eval", 64, 32, 32, 8, 8, 24, "float32", True, None, None),
+    ("charlm eval, S = 128", 64, 128, 128, 8, 8, 24, "float32", True, None,
+     None),
 )
 
 
-def flash_bound_ms(q, k, window, card_name: str):
-    """The least time the card could take for one causal flash call on
-    q (B,S,H,D), k (B,S,KVH,D): the larger of its bytes (q, k, v read
+def flash_bound_ms(q, k, window, card_name: str, causal: bool = True):
+    """The least time the card could take for one flash call on q
+    (B,Sq,H,D), k (B,Sk,KVH,D): the larger of its bytes (q, k, v read
     once, the output written once) over the memory rate and the
     operations its unmasked pairs need (4 D each) over the rate of its
     dtype (bf16 tensor cores, fp32 CUDA cores) -> (ms, details)."""
     _, (bw, fp32_rate, bf16_rate) = card_rates(card_name)
-    b, s, h, d = q.shape
+    b, sq, h, d = q.shape
     bytes_ = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    ops_ = 4 * b * h * d * flash_pairs(s, s, True, window)
+    ops_ = 4 * b * h * d * flash_pairs(sq, k.shape[1], causal, window)
     rate = bf16_rate if q.dtype == torch.bfloat16 else fp32_rate
     t_bytes, t_ops = bytes_ / bw * 1e3, ops_ / rate * 1e3
     return max(t_bytes, t_ops), {
@@ -879,14 +955,15 @@ def flash_bound_ms(q, k, window, card_name: str):
         "bytes": bytes_, "operations": ops_, "ops_per_s": rate}
 
 
-def sdpa_call(q, k, v, window):
-    """SDPA on (B,S,H,D) tensors, causal (and banded by ``window`` through
-    a boolean mask), without a softcap, as a function of no arguments."""
+def sdpa_call(q, k, v, window, causal: bool = True):
+    """SDPA on (B,S,H,D) tensors, causal or not (and banded by ``window``
+    through a boolean mask), without a softcap, as a function of no
+    arguments."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     gqa = k.shape[2] != q.shape[2]
     if window is None:
         return lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=gqa)
+            qt, kt, vt, is_causal=causal, enable_gqa=gqa)
     pos = torch.arange(q.shape[1], device=q.device)
     mask = ((pos[None, :] <= pos[:, None])
             & (pos[None, :] > pos[:, None] - window))
@@ -898,19 +975,21 @@ def flash_records(dev, card_name: str):
     """Hold the flash kernel to its plain version at the main path's
     shapes (the sweep's bounds; fails outside them), and time it there
     beside the plain version, SDPA where it computes the same function
-    (no softcap, no window: the char-LM, Phi-3.5-MoE's layer and
-    DeepSeek-V3's MLA layer with v zero-padded to 192, as the model runs
-    it), and the bound; at Gemma2's
-    shapes also SDPA without the softcap (``sdpa_no_softcap_ms``: not the
-    same function) and the SM clock and power draw right after the
-    kernel's timed window."""
+    (no softcap: the char-LM, Phi-3.5-MoE's layer, DeepSeek-V3's MLA
+    layer with v zero-padded to 192, as the model runs it, RecurrentGemma's
+    local layer with its window as a boolean mask, SeamlessM4T's
+    non-causal encoder layer and decode cross-attention), and the bound;
+    at Gemma2's shapes also SDPA without the softcap
+    (``sdpa_no_softcap_ms``: not the same function); at Sq >= 4,096 the
+    SM clock and power draw right after the kernel's timed window."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import variant
     gen = torch.Generator(device=dev).manual_seed(22)
     recs = []
-    for label, b, s, h, kvh, d, dtype, window, softcap in FLASH_TIMED:
-        q, k, v = flash_inputs(gen, b, s, h, kvh, d, dtype, dev)
-        kw = dict(causal=True, window=window, softcap=softcap)
+    for (label, b, sq, sk, h, kvh, d, dtype, causal, window,
+         softcap) in FLASH_TIMED:
+        q, k, v = flash_inputs(gen, b, sq, h, kvh, d, dtype, dev, sk=sk)
+        kw = dict(causal=causal, window=window, softcap=softcap)
         got = ops.flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
         gap, ok = flash_gap(got, want, dtype)
@@ -918,13 +997,14 @@ def flash_records(dev, card_name: str):
               f"flash_attention_bhsd differs at the {label} shape: max "
               f"|gap| {gap}")
         del got, want
-        big = s >= 4096
+        big = sq >= 4096
         kernel = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
         library = None
-        if window is None and softcap is None:
+        if softcap is None:
             # the same function in one PyTorch call: timed in turns
-            ms, library = time_turns_ms(kernel, sdpa_call(q, k, v, None),
-                                        reps=10 if big else 100)
+            ms, library = time_turns_ms(
+                kernel, sdpa_call(q, k, v, window, causal),
+                reps=10 if big else 100)
         else:
             ms = time_ms(kernel, reps=10 if big else 100)
         rec = {
@@ -932,8 +1012,8 @@ def flash_records(dev, card_name: str):
             "source": FLASH_SOURCE,
             "replaces": "src/repro/kernels/flash_attention.py:90",
             "variant": variant(q.dtype, d),
-            "shape": label, "batch": b, "seq": s, "heads": h,
-            "kv_heads": kvh, "head_dim": d, "dtype": dtype,
+            "shape": label, "batch": b, "seq": sq, "seq_k": sk, "heads": h,
+            "kv_heads": kvh, "head_dim": d, "dtype": dtype, "causal": causal,
             "window": window, "softcap": softcap, "max_abs_err": gap,
             "ms": ms}
         if big:
@@ -944,9 +1024,10 @@ def flash_records(dev, card_name: str):
                                   reps=3 if big else 30, warmup=1)
         rec["library_ms"] = library
         if big and softcap is not None:
-            rec["sdpa_no_softcap_ms"] = time_ms(sdpa_call(q, k, v, window),
-                                                reps=10)
-        rec["bound_ms"], bound = flash_bound_ms(q, k, window, card_name)
+            rec["sdpa_no_softcap_ms"] = time_ms(
+                sdpa_call(q, k, v, window, causal), reps=10)
+        rec["bound_ms"], bound = flash_bound_ms(q, k, window, card_name,
+                                                causal)
         rec.update(bound)
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         recs.append(rec)
@@ -1539,39 +1620,56 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def logit_gap(name: str, got, want, bound: float, config: str) -> None:
+def logit_gap(name: str, got, want, bound: float, config: str,
+              checked: bool = True) -> float:
+    """Emit how far two logits part (relative L2); fail past ``bound``
+    unless the line is for information only (``checked`` false)."""
     gap = rel_l2(got, want)
     rec = {"phase": "serve_check", "config": config, "check": name,
            "rel_l2": gap,
            "max_abs": float((got.double() - want.double()).abs().max()),
            "max_abs_logit": float(want.abs().max()),
            "argmax_equal": bool(torch.equal(got.argmax(-1), want.argmax(-1))),
-           "rel_l2_bound": bound}
+           "rel_l2_bound": bound if checked else None}
     emit(rec)
-    check(math.isfinite(gap) and gap <= bound,
-          f"{config} {name}: logits part by {gap} (bound {bound})")
+    if checked:
+        check(math.isfinite(gap) and gap <= bound,
+              f"{config} {name}: logits part by {gap} (bound {bound})")
+    return gap
 
 
 def device_split(fn, top: int = 6):
     """``fn()`` under torch.profiler -> (its result, {"device_us": all
-    device time, "flash_device_us": the flash kernel's, "top_kernels":
-    the ``top`` largest kernels by device time, [name, us]})."""
+    device time, "device_ops": the kernels and copies the card ran,
+    "flash_device_us": the flash kernel's, "top_kernels": the ``top``
+    largest kernels by device time, [name, us]}).
+
+    The profiler records the card's activity alone, and the kernels'
+    times are summed from its events directly, not through
+    ``key_averages``: xLSTM's prefill launches ~200,000 kernels, and
+    recording the host's ops beside them, then averaging, took most of
+    its phase's time; the kernels' sums are the same either way."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention import KERNELS
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    by_name: dict = {}
+    n_ops = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_ops += 1
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.self_device_time_total)
+    kernels = sorted(((name, us) for name, us in by_name.items() if us > 0),
+                     key=lambda kv: -kv[1])
     total = sum(us for _, us in kernels)
     flash = sum(us for name, us in kernels
                 if any(k in name for k in KERNELS.values()))
-    kernels.sort(key=lambda kv: -kv[1])
-    return out, {"device_us": total, "flash_device_us": flash,
+    return out, {"device_us": total, "device_ops": n_ops,
+                 "flash_device_us": flash,
                  "top_kernels": [[name[:80], us] for name, us in
                                  kernels[:top]]}
 
@@ -1606,30 +1704,53 @@ def flips(a, b, rows=slice(None)) -> list:
             for (x, _), (y, _) in zip(a, b)]
 
 
+def flash_per_prefill(cfg) -> int:
+    """Flash launches of one prefill: one per attention layer (none in
+    xLSTM), and under an encoder-decoder one per encoder layer and two per
+    decoder layer (its causal self-attention and its cross-attention)."""
+    if cfg.encdec:
+        return cfg.enc_layers + 2 * cfg.num_layers
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+
+
 def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
                   phase: str = "serve", layers: int = 0,
                   prompt_len: int = SERVE_PROMPT, steps: int = SERVE_STEPS,
                   check_capacity: float = 0.0,
+                  check_dtype: Optional[torch.dtype] = None,
                   reduces: str = SERVE_REDUCES) -> int:
     """One config at full width on the card (depth cut to ``layers``
-    when given): prefill one ``prompt_len``-token prompt and decode
-    ``steps`` greedy tokens through the serving steps; returns the flash
-    launches of the timed prefill.
+    when given): prefill one ``prompt_len``-token prompt (an
+    encoder-decoder: ``synthetic_batch(cfg, 1, 2 * prompt_len)``,
+    ``prompt_len`` source frames and target tokens) and decode ``steps``
+    greedy tokens through the serving steps; returns the flash launches
+    of the timed prefill and of the decode steps.
 
     Checks: (a) the timed prefill's last logits against the same model
-    with the plain attention in its place; (b) decode after the first and
-    the last step against a prefill over the prompt plus the tokens so
-    far. Both within 2 x 2^-8 x sqrt(2 L) relative L2 (``serve_rel_l2``).
+    with the plain attention in its place (a config with attention); (b)
+    decode after the first and the last step against a prefill over the
+    prompt plus the tokens so far. Both within 2 x 2^-8 x sqrt(2 L)
+    relative L2 (``serve_rel_l2``, L every layer, the encoder's too).
     An MoE config drops tokens over capacity in prefill, and a one-token
     decode never does; so (b) runs a model at ``check_capacity``, where
     the capacity is the group size and nothing drops, and the line prints
     the drop share at the config's own factor beside it, and, per MoE
     layer, the tokens whose expert set differs between the two runs of
-    each check (routing flips from bf16 rounding)."""
+    each check (routing flips from bf16 rounding). With ``check_dtype``
+    (xLSTM: float32), (b) runs the same weights in that dtype, prefill
+    and decode fed the timed run's tokens, and the timed bf16 decode's
+    own gaps are printed beside it, unchecked: the 48-block xLSTM stack
+    parts two bf16 runs by more than the bound even when they differ
+    only in a GEMM's tiling (``SERVE_XLSTM``). The line also carries
+    the decode step's floor: the bytes of the weights and of the decode
+    caches (recurrent states, KV and cross K/V buffers), each read once,
+    over the card's memory rate."""
     from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.data import synthetic_batch
     from repro_torch.kernels import cuda_lib, ops, ref
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import build
+    from repro_torch.models.convert import flatten
 
     published = get_config(arch)
     cfg = published.replace(num_layers=layers) if layers else published
@@ -1638,7 +1759,11 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
     if check_capacity:
         check_model = build(cfg.replace(moe=dataclasses.replace(
             cfg.moe, capacity_factor=check_capacity)))
-    bound = serve_rel_l2(cfg.num_layers)
+    if check_dtype is not None:
+        check_model = build(cfg.replace(param_dtype=check_dtype,
+                                        compute_dtype=check_dtype))
+    bound = serve_rel_l2(cfg.num_layers + cfg.enc_layers)
+    n_flash = flash_per_prefill(cfg)
     shape = dataclasses.replace(INPUT_SHAPES["prefill_32k"],
                                 seq_len=prompt_len, global_batch=1)
     torch.cuda.empty_cache()
@@ -1653,38 +1778,54 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
     counts = model.param_count()
     check(n_params == counts["total"],
           f"{n_params} parameters drawn, {counts} expected")
-    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
-                           generator=torch.Generator(device=dev).manual_seed(
-                               1), device=dev)
+    src = None
+    if cfg.encdec:
+        drawn = synthetic_batch(cfg, 1, 2 * prompt_len, seed=1)
+        src = torch.from_numpy(drawn["src_embeds"]).to(dev)
+        prompt = torch.from_numpy(drawn["tokens"]).long().to(dev)
+    else:
+        prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                               generator=torch.Generator(
+                                   device=dev).manual_seed(1), device=dev)
+
+    def batch(tokens):
+        return {"tokens": tokens} if src is None else {"tokens": tokens,
+                                                       "src_embeds": src}
+
     prefill = make_prefill_step(model, shape, max_new_tokens=steps)
     check_prefill = make_prefill_step(check_model, shape,
                                       max_new_tokens=steps)
-    decode = make_decode_step(check_model)
-    prefill(params, {"tokens": prompt[:, :512]})          # warm up
+    decode = make_decode_step(model if check_dtype else check_model)
+    prefill(params, batch(prompt[:, :512]))               # warm up
     torch.cuda.synchronize()
 
     ops.reset_launches()
     t0 = time.perf_counter()
-    logits, caches = prefill(params, {"tokens": prompt})
+    logits, caches = prefill(params, batch(prompt))
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     clocks = smi_clocks()
     launches = dict(ops.LAUNCHES)
     variants = dict(cuda_lib.FLASH_VARIANTS)
-    check(launches["flash_attention_bhsd"] == cfg.num_layers,
+    check(launches["flash_attention_bhsd"] == n_flash,
           f"{launches['flash_attention_bhsd']} flash launches in one "
-          f"prefill, expected {cfg.num_layers}")
-    check(variants["mma_bf16"] == cfg.num_layers,
+          f"prefill, expected {n_flash}")
+    check(variants["mma_bf16"] == n_flash,
           f"prefill's flash launches by variant {variants}: expected all "
-          f"{cfg.num_layers} on the tensor cores (mma_bf16)")
+          f"{n_flash} on the tensor cores (mma_bf16)")
     check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"prefill logits {tuple(logits.shape)} not finite or misshapen")
     if check_capacity:
         del caches
-        start, caches = check_prefill(params, {"tokens": prompt})
+        start, caches = check_prefill(params, batch(prompt))
     else:
         start = logits
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in flatten(caches).values())
+    bw = card_rates(torch.cuda.get_device_name(0))[1][0]
+    floor_bytes = sum(t.numel() * t.element_size()
+                      for t in params.values()) + cache_bytes
 
     tokens, step_ms = [], []
     tok = start.argmax(-1)
@@ -1702,57 +1843,94 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
             if i == 0:
                 first = out.clone()
             tok = out.argmax(-1)
-    check(ops.LAUNCHES["flash_attention_bhsd"] == flash_before,
-          "decode launched the flash kernel (its attention is plain)")
+    decode_flash = ops.LAUNCHES["flash_attention_bhsd"] - flash_before
+    # the encoder-decoder's cross-attention is a no-grad full attention:
+    # the kernel at Sq 1; every other decode attention is plain
+    want_flash = steps * cfg.num_layers if cfg.encdec else 0
+    check(decode_flash == want_flash,
+          f"decode launched the flash kernel {decode_flash} times, "
+          f"expected {want_flash}")
     # one more step under the profiler: the device's share of a step
     _, step_split = device_split(lambda: decode(params, caches, tok))
     del caches
     n_moe = len(decoded) // steps
 
     # (b) decode against prefill over the prompt plus the tokens so far
+    bf16_gaps = None
+    if check_dtype is not None:
+        # the timed (bf16) decode's gaps, printed, not checked
+        bf16_gaps = [logit_gap(f"{cfg.param_dtype} decode step {n} vs "
+                               f"prefill (not checked)", got,
+                               prefill(params, batch(torch.cat(
+                                   [prompt] + tokens[:n], 1)))[0], bound,
+                               cfg.name, checked=False)
+                     for n, got in ((1, first), (steps, out))]
+        # the check: the same weights in check_dtype, decode fed the
+        # same tokens
+        params_c = {k: v.to(check_dtype) for k, v in params.items()}
+        _, caches_c = check_prefill(params_c, batch(prompt))
+        decode_c = make_decode_step(check_model)
+        for i, t in enumerate(tokens):
+            out, caches_c = decode_c(params_c, caches_c, t)
+            if i == 0:
+                first = out.clone()
+        del caches_c
+    else:
+        params_c = params
     with routing_log() as after_one_routes:
-        after_one, _ = check_prefill(params, {"tokens": torch.cat(
-            [prompt, tokens[0]], 1)})
+        after_one, _ = check_prefill(params_c, batch(torch.cat(
+            [prompt, tokens[0]], 1)))
     logit_gap("decode step 1 vs prefill", first, after_one, bound, cfg.name)
     with routing_log() as after_all_routes:
-        after_all, _ = check_prefill(params, {"tokens": torch.cat(
-            [prompt] + tokens, 1)})
+        after_all, _ = check_prefill(params_c, batch(torch.cat(
+            [prompt] + tokens, 1)))
     logit_gap(f"decode step {steps} vs prefill", out, after_all, bound,
               cfg.name)
-    del after_one, after_all
+    del after_one, after_all, params_c
 
     # (a) the kernel against the plain attention inside the same model;
     # the kernel's prefill (the timed one's function) under the profiler
     real = ops.flash_attention
     with routing_log() as kernel_routes:
         (kernel, _), split = device_split(
-            lambda: prefill(params, {"tokens": prompt}))
-    check(split["device_us"] > 0 and split["flash_device_us"] > 0,
+            lambda: prefill(params, batch(prompt)))
+    check(split["device_us"] > 0 and (split["flash_device_us"] > 0
+                                      or not n_flash),
           "the profiler saw no device time of the flash kernel in prefill")
     split = {"prefill_device_us": split["device_us"],
+             "prefill_device_ops": split["device_ops"],
              "flash_device_us": split["flash_device_us"],
              "flash_share": split["flash_device_us"] / split["device_us"],
              "prefill_top_kernels": split["top_kernels"]}
-    with routing_log() as plain_routes:
-        ops.flash_attention = ref.flash_attention_ref
-        try:
-            plain, _ = prefill(params, {"tokens": prompt})
-        finally:
-            ops.flash_attention = real
-    logit_gap("prefill kernel vs plain attention", kernel, plain, bound,
-              cfg.name)
+    if n_flash:
+        with routing_log() as plain_routes:
+            ops.flash_attention = ref.flash_attention_ref
+            try:
+                plain, _ = prefill(params, batch(prompt))
+            finally:
+                ops.flash_attention = real
+        logit_gap("prefill kernel vs plain attention", kernel, plain, bound,
+                  cfg.name)
     peak = torch.cuda.max_memory_allocated()
     rec = {"phase": phase, "config": cfg.name, "params": n_params,
            "active_params": counts["active"], "layers": cfg.num_layers,
+           "enc_layers": cfg.enc_layers,
            "dtype": str(cfg.param_dtype), "batch": 1, "prompt": prompt_len,
+           "source_frames": 0 if src is None else src.shape[1],
            "decode_steps": steps, "reduces": reduces, "init_s": init_s,
            "prefill_s": prefill_s,
            "prefill_tokens_per_s": prompt_len / prefill_s,
            "decode_ms_per_token": statistics.median(step_ms),
            "decode_step_ms": step_ms, "peak_memory_bytes": peak,
-           "rel_l2_bound": bound, "launches": launches,
+           "decode_floor_bytes": floor_bytes,
+           "decode_cache_bytes": cache_bytes,
+           "decode_floor_ms": floor_bytes / bw * 1e3,
+           "rel_l2_bound": bound, "check_dtype": str(check_dtype),
+           "bf16_decode_gaps_unchecked": bf16_gaps, "launches": launches,
+           "decode_flash_launches": decode_flash,
            "flash_variants": variants, **clocks, **split,
            "decode_step_device_us": step_split["device_us"],
+           "decode_step_device_ops": step_split["device_ops"],
            "decode_top_kernels": step_split["top_kernels"]}
     if cfg.moe:
         dropped = [float(1 - kept.float().mean()) for _, kept in kernel_routes]
@@ -1777,15 +1955,17 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
     rec.update({"phase_s": time.perf_counter() - phase_t0,
                 "nvidia_smi": smi})
     emit(rec)
-    return launches["flash_attention_bhsd"]
+    return launches["flash_attention_bhsd"] + decode_flash
 
 
 def drive_serve_smoke(dev) -> int:
-    """Each new config at its SMOKE size (f32) on the card: a prefill of a
+    """Each zoo config at its SMOKE size (f32) on the card: a prefill of a
     ``synthetic_batch`` (2 x 64 tokens; PaliGemma's 8 patch tokens among
-    them) against the same prefill on the CPU from the same weights,
-    logits and every cache within ``SMOKE_CARD_RTOL`` of their largest
-    magnitude; one flash launch a layer. Returns the flash launches."""
+    them; SeamlessM4T's 32 source frames and 32 target tokens) against
+    the same prefill on the CPU from the same weights, logits and every
+    cache (recurrent states included) within ``SMOKE_CARD_RTOL`` of their
+    largest magnitude; one flash launch per attention
+    (``flash_per_prefill``). Returns the flash launches."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import synthetic_batch
     from repro_torch.kernels import ops
@@ -1806,9 +1986,9 @@ def drive_serve_smoke(dev) -> int:
             {k: v.to(dev) for k, v in batch.items()}, max_new_tokens=4)
         torch.cuda.synchronize()
         launches = ops.LAUNCHES["flash_attention_bhsd"]
-        check(launches == cfg.num_layers,
+        check(launches == flash_per_prefill(cfg),
               f"{arch} SMOKE: {launches} flash launches in one prefill, "
-              f"expected {cfg.num_layers}")
+              f"expected {flash_per_prefill(cfg)}")
         gaps = {"logits": (got.cpu() - want).abs().max().item()
                 / want.abs().max().item()}
         want_flat, got_flat = flatten(want_cache), flatten(got_cache)
@@ -1919,6 +2099,9 @@ def main() -> int:
     serve_flash = drive_serving(dev, smi)
     serve_flash += drive_serving(dev, smi, **SERVE_MOE)
     serve_flash += drive_serving(dev, smi, **SERVE_MLA)
+    serve_flash += drive_serving(dev, smi, **SERVE_REC)
+    serve_flash += drive_serving(dev, smi, **SERVE_XLSTM)
+    serve_flash += drive_serving(dev, smi, **SERVE_ENCDEC)
     serve_flash += drive_serve_smoke(dev)
     serve_launches = {"flash_attention_bhsd": serve_flash}
     for r in recs + [limbs_rec]:

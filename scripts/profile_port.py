@@ -24,13 +24,16 @@ Prints JSON lines:
   whole and split into its steps (copy the values' bits to the card,
   kernel, copy the sums back).
 - ``flash``: the flash-attention kernel at the main path's shapes
-  (``chip_smoke.FLASH_TIMED``: one Gemma2 global and one local layer in
-  prefill, B = 1, S = 8192, bf16; the char-LM eval, B = 64, S = 32 and
-  128, f32): its device time per launch under the profiler (5 launches
-  at S = 8192, 20 otherwise) and, in the same process, the median
-  CUDA-event time of one call as ``chip_smoke.py`` takes it, the share
-  of the bound (``chip_smoke.flash_bound_ms``) in the device time, and
-  at S = 8192 the SM clock and power draw right after each window.
+  (``chip_smoke.FLASH_TIMED``: Gemma2's global and local layers,
+  Phi-3.5-MoE's, DeepSeek-V3's MLA, RecurrentGemma's local layer and
+  SeamlessM4T's encoder layer in prefill, bf16; SeamlessM4T's decode
+  cross-attention, Sq 1 over Sk 4,096; the char-LM eval, B = 64, S = 32
+  and 128, f32): its device time per launch under the profiler (5
+  launches at Sq >= 4,096, 20 otherwise) and, in the same process, the
+  median CUDA-event time of one call as ``chip_smoke.py`` takes it, the
+  share of the bound (``chip_smoke.flash_bound_ms``) in the device time,
+  and at Sq >= 4,096 the SM clock and power draw right after each
+  window.
 - ``engine_round``: ``--engine-rounds`` CAFL-L rounds of
   ``FederatedEngine`` on the card with each aggregator ("sync", then
   "masked"), each round split at the engine's own callback hooks (with a
@@ -114,14 +117,15 @@ def flash_times(dev) -> dict:
     from repro_torch.kernels.flash_attention import KERNELS
     gen = torch.Generator(device=dev).manual_seed(22)
     out = {}
-    for label, b, s, h, kvh, d, dtype, window, softcap in FLASH_TIMED:
-        q, k, v = flash_inputs(gen, b, s, h, kvh, d, dtype, dev)
+    for (label, b, sq, sk, h, kvh, d, dtype, causal, window,
+         softcap) in FLASH_TIMED:
+        q, k, v = flash_inputs(gen, b, sq, h, kvh, d, dtype, dev, sk=sk)
 
         def call():
-            return ops.flash_attention(q, k, v, causal=True, window=window,
+            return ops.flash_attention(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
 
-        big = s >= 4096
+        big = sq >= 4096
         row = {"device_us": kernel_device_us(call, KERNELS.values(),
                                              reps=5 if big else 20,
                                              what=label)}
@@ -131,7 +135,7 @@ def flash_times(dev) -> dict:
         if big:
             row["event_clocks"] = smi_clocks()
         bound_ms, _ = flash_bound_ms(q, k, window,
-                                     torch.cuda.get_device_name(0))
+                                     torch.cuda.get_device_name(0), causal)
         row["bound_ms"] = bound_ms
         row["bound_share_of_device"] = bound_ms * 1e3 / row["device_us"]
         out[label] = row

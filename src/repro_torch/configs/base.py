@@ -4,11 +4,10 @@ The fields of ``repro.configs.base`` that the ported models read, with
 the same defaults; dtypes are ``torch`` dtypes. ``ModelConfig`` carries
 the switches of the attention-based decoders (attention pattern and
 window, softcaps, q/k/v biases, norm and MLP types, post-norms,
-embedding options) and the ``MoEConfig``, ``MLAConfig`` and
-``FrontendConfig`` sub-configs, as the reference has them; the RG-LRU /
-xLSTM sub-configs and the encoder-decoder fields are not ported yet
-(ROADMAP queue 1 item 11b), and ``block_pattern`` names block kinds
-that the port's stack refuses. ``FLConfig`` carries every field of the
+embedding options), the block pattern of the recurrent stacks, the
+encoder-decoder fields, and the ``MoEConfig``, ``MLAConfig``,
+``RGLRUConfig``, ``XLSTMConfig`` and ``FrontendConfig`` sub-configs, as
+the reference has them. ``FLConfig`` carries every field of the
 reference's, engine choices included (executor, aggregator, server
 optimizer, constraint stack, dual overrides, time mode, horizon).
 """
@@ -45,6 +44,25 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class RGLRUConfig:
+    """Griffin/RecurrentGemma recurrent block."""
+    lru_width: int = 0                # 0 -> d_model
+    conv_width: int = 4
+    c_const: float = 8.0              # the fixed `c` in a_t = exp(-c softplus(Λ) σ(r))
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block stack (mLSTM-dominant with interleaved sLSTM)."""
+    mlstm_per_unit: int = 7           # xLSTM[7:1]
+    slstm_per_unit: int = 1
+    chunk_size: int = 64              # chunkwise-parallel mLSTM chunk
+    proj_factor_mlstm: float = 2.0    # up-projection factor (pre-LSTM)
+    proj_factor_slstm: float = 1.3334
+    conv_width: int = 4
+
+
+@dataclass(frozen=True)
 class FrontendConfig:
     """Stub modality frontend: the batch carries precomputed embeddings."""
     kind: str                         # "vision" | "audio"
@@ -55,8 +73,8 @@ class FrontendConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str
-    num_layers: int
+    family: str                       # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int                   # decoder layers (enc-dec: of the decoder)
     d_model: int
     num_heads: int
     num_kv_heads: int
@@ -76,13 +94,18 @@ class ModelConfig:
     # --- specials ---
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     # block kinds cycled over layers ("attn" | "rec" | "mlstm" | "slstm");
     # empty -> every layer is attention
     block_pattern: Tuple[str, ...] = ()
+    # --- enc-dec ---
+    encdec: bool = False
+    enc_layers: int = 0
     # --- frontend stub ---
     frontend: Optional[FrontendConfig] = None
     # --- misc ---
-    mlp_type: str = "swiglu"          # swiglu | geglu | gelu | relu2
+    mlp_type: str = "swiglu"          # swiglu | geglu | gelu | relu2 | none
     norm_type: str = "rms"            # rms | layer
     post_norms: bool = False          # gemma2-style post-attn/post-ffn norms
     tie_embeddings: bool = True

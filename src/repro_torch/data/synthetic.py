@@ -1,7 +1,6 @@
 """Synthetic token / embedding batches for smoke runs, as
-``repro.data.synthetic``: the same NumPy draws from the same seed, so
-both packages get identical arrays. The encoder-decoder batch (source
-embeddings) is not ported yet (ROADMAP queue 1 item 11b)."""
+``repro.data.synthetic``: the same NumPy draws from the same seed, in the
+same order, so both packages get identical arrays."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,11 +9,22 @@ from repro_torch.configs.base import ModelConfig
 
 
 def synthetic_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0):
-    """-> {"tokens", "targets": (B, S_text) int32} as NumPy arrays, and
-    for a vision frontend ``patch_embeds`` (B, P, E_f) float32, where the
-    P patch tokens count toward ``seq`` (S_text = seq - P)."""
+    """-> {"tokens", "targets": (B, S_text) int32} as NumPy arrays. An
+    encoder-decoder splits ``seq`` into source frames ``src_embeds`` (B,
+    seq // 2, E_f) float32 and seq - seq // 2 target tokens; a vision
+    frontend adds ``patch_embeds`` (B, P, E_f) float32, whose P patch
+    tokens count toward ``seq`` (S_text = seq - P)."""
     rng = np.random.default_rng(seed)
     out = {}
+    if cfg.encdec:
+        s_src, s_tgt = seq // 2, seq - seq // 2
+        out["src_embeds"] = rng.normal(
+            size=(batch, s_src, cfg.frontend.embed_dim)).astype(np.float32)
+        out["tokens"] = rng.integers(0, cfg.vocab_size,
+                                     (batch, s_tgt)).astype(np.int32)
+        out["targets"] = rng.integers(0, cfg.vocab_size,
+                                      (batch, s_tgt)).astype(np.int32)
+        return out
     n_text = seq
     if cfg.frontend is not None and cfg.frontend.kind == "vision":
         n_prefix = cfg.frontend.num_prefix_tokens

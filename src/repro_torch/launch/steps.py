@@ -23,8 +23,8 @@ def make_train_step(*args, **kwargs):
 def make_prefill_step(model: Model, shape: InputShape,
                       max_new_tokens: int = 0):
     """(params, batch) -> (last logits (B, 1, V), decode caches). The
-    batch's ``patch_embeds`` (a vision frontend's) go through to the
-    model with its tokens.
+    batch goes to the model whole: its tokens, and a vision frontend's
+    ``patch_embeds`` or an encoder-decoder's ``src_embeds`` with them.
 
     ``long_500k`` windows the global layers' caches by the config's
     ``decode_window``, as the reference does. ``max_new_tokens`` leaves

@@ -18,6 +18,14 @@ global block ``b1``, each with RMS norms (one ``scale`` leaf), the
 ``post1`` / ``post2`` norms and a GeGLU MLP; an MoE block's ``ffn``
 holds the f32 ``router`` and the expert stacks (n_units, E, d, f);
 DeepSeek-V3's dense lead-in is the list ``stack.prefix``.
+RecurrentGemma's remainder layers are the list ``stack.suffix``, and its
+``rec`` blocks hold the RG-LRU (``rec.*``, with the f32 leaf
+``lambda_raw``), ``ln2`` and ``ffn``; xLSTM's blocks hold ``mlstm.*``
+(f32 gate leaves ``w_i``, ``b_i``, ``w_f``, ``b_f``) or ``slstm.*``
+(f32 ``b_in``); SeamlessM4T's tree is ``io`` (with ``enc_norm`` and
+``frontend_proj``), ``enc`` and ``dec``, each stack with a leading
+layer axis. A leaf keeps its dtype both ways, so a bf16 model's f32
+leaves stay f32.
 
 ``ParamTree`` is the ``nn.Module`` that holds such a dict, with the same
 dotted names as its parameter names. ``params_from_numpy`` and

@@ -11,13 +11,14 @@ buffers, single-token decode attention).
 Attention over a full sequence takes one of two routes. Without a
 gradient (``torch.is_grad_enabled()`` false: the eval, prefill) it goes
 to ``kernels.ops.flash_attention``, the CUDA flash kernel on the card
-and its plain twin on the CPU. With a gradient it is the dense branch of
-the reference's ``_attend_block`` (plain matmuls and a softmax over each
-q chunk's kv range, masked with -1e30), since the kernel has no
+and its plain twin on the CPU: causal for the decoders, ``causal=False``
+for ``bidir_attention`` (the encoder and the cross-attention, where q
+and k may differ in length). With a gradient it is the reference's
+``_attend_block`` (plain matmuls and a softmax over each q chunk's kv
+range, masked with -1e30; past ``2 * kv_chunk`` keys, its online-softmax
+scan over kv chunks, masked with -inf), since the kernel has no
 backward. Decode attention stays plain torch: the JAX package has no
-kernel for it. The kv-chunked online-softmax scan of the reference's
-training attention and its bidirectional attention are not ported
-(ROADMAP queue 1 item 11b).
+kernel for it.
 """
 from __future__ import annotations
 
@@ -43,6 +44,16 @@ def _normal(gen: Optional[torch.Generator], shape,
         return torch.empty(shape, device=device)
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=gen.device).to(device)
+
+
+def _uniform(gen: Optional[torch.Generator], shape, low: float, high: float,
+             device: torch.device) -> torch.Tensor:
+    """Uniform fp32 draws in [low, high), as ``_normal`` draws."""
+    if device.type == "meta":
+        return torch.empty(shape, device=device)
+    u = torch.rand(shape, generator=gen, dtype=torch.float32,
+                   device=gen.device)
+    return (u * (high - low) + low).to(device)
 
 
 def dense_init(gen, in_dim: int, out_dim: int, dtype, device,
@@ -131,7 +142,7 @@ def mlp_init(gen, cfg: ModelConfig, device, d_ff: Optional[int] = None,
                 "b_up": torch.zeros((d_ff,), dtype=dt, device=device),
                 "w_down": dense_init(gen, d_ff, dm, dt, device),
                 "b_down": torch.zeros((dm,), dtype=dt, device=device)}
-    raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported")
+    raise ValueError(f"mlp_type {cfg.mlp_type!r} has no MLP")
 
 
 def gelu(x):
@@ -162,27 +173,92 @@ def _softcap(scores, cap: Optional[float]):
     return cap * torch.tanh(scores / cap)
 
 
-def _scores_mask(qpos, kpos, window: Optional[int]):
-    """Causal mask with an optional sliding window: (Cq, L) bool."""
-    mask = kpos[None, :] <= qpos[:, None]
+def _scores_mask(qpos, kpos, window: Optional[int], causal: bool = True):
+    """(Cq, L) bool: the key slot holds a token (padding slots carry kpos
+    -1), at or before the query when causal, inside the window when
+    there is one."""
+    mask = kpos[None, :] >= 0
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
     if window is not None:
-        mask &= kpos[None, :] > (qpos[:, None] - window)
+        mask = mask & (kpos[None, :] > (qpos[:, None] - window))
     return mask
 
 
-def _attend_block(q, k, v, qpos, kpos, scale, softcap, window):
-    """q: (B,Cq,H,D) k/v: (B,L,KVH,D) -> (B,Cq,H,D): full scores over the
-    kv range, softcapped, masked with -1e30, fp32 softmax."""
+def _attend_block(q, k, v, qpos, kpos, scale, softcap, window,
+                  kv_chunk: int = 2048, causal: bool = True):
+    """q: (B,Cq,H,D) k/v: (B,L,KVH,Dv) -> (B,Cq,H,Dv), fp32 softmax.
+
+    Up to ``2 * kv_chunk`` keys: full scores over the kv range,
+    softcapped, masked with -1e30. Past that, the reference's
+    flash-style scan over kv chunks (keys padded to whole chunks with
+    kpos -1): an online softmax with running max ``m`` (masked scores
+    -inf; a row that has kept nothing yet subtracts 0, ``m_safe``), the
+    probabilities cast to v's dtype before the PV product and the sums
+    kept in fp32."""
     b, cq, h, d = q.shape
-    kvh = k.shape[2]
-    qg = q.reshape(b, cq, kvh, h // kvh, d)
-    scores = torch.einsum("bqkgd,blkd->bkgql", qg, k).to(torch.float32) * scale
-    scores = _softcap(scores, softcap)
-    mask = _scores_mask(qpos, kpos, window)
-    scores = scores.masked_fill(~mask[None, None, None], -1e30)
-    w = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgql,blkd->bqkgd", w, v)
-    return out.reshape(b, cq, h, v.shape[-1])
+    kvh, dv = k.shape[2], v.shape[-1]
+    g = h // kvh
+    qg = q.reshape(b, cq, kvh, g, d)
+    length = k.shape[1]
+
+    if length <= 2 * kv_chunk:
+        scores = torch.einsum("bqkgd,blkd->bkgql", qg,
+                              k).to(torch.float32) * scale
+        scores = _softcap(scores, softcap)
+        mask = _scores_mask(qpos, kpos, window, causal)
+        scores = scores.masked_fill(~mask[None, None, None], -1e30)
+        w = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = torch.einsum("bkgql,blkd->bqkgd", w, v)
+        return out.reshape(b, cq, h, dv)
+
+    n = -(-length // kv_chunk)
+    pad = n * kv_chunk - length
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = F.pad(kpos, (0, pad), value=-1)
+    m = torch.full((b, kvh, g, cq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l_sum = torch.zeros((b, kvh, g, cq), dtype=torch.float32,
+                        device=q.device)
+    acc = torch.zeros((b, cq, kvh, g, dv), dtype=torch.float32,
+                      device=q.device)
+    for i in range(n):
+        chunk = slice(i * kv_chunk, (i + 1) * kv_chunk)
+        kb, vb = k[:, chunk], v[:, chunk]
+        s = torch.einsum("bqkgd,blkd->bkgql", qg, kb).to(torch.float32) * scale
+        s = _softcap(s, softcap)
+        mask = _scores_mask(qpos, kpos[chunk], window, causal)
+        s = s.masked_fill(~mask[None, None, None], -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        p = torch.exp(s - m_safe[..., None])
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                           torch.zeros_like(m))
+        l_sum = l_sum * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgql,blkd->bqkgd", p.to(vb.dtype), vb)
+        acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv.to(torch.float32)
+        m = m_new
+    out = acc / torch.clamp(l_sum, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    return out.to(v.dtype).reshape(b, cq, h, dv)
+
+
+def bidir_attention(q, k, v, *, softcap: Optional[float] = None,
+                    scale: Optional[float] = None, kv_chunk: int = 2048):
+    """Full bidirectional attention (the encoder, the cross-attention):
+    q (B,Sq,H,D) over k/v (B,Sk,KVH,D), Sq and Sk free; ``scale``
+    defaults to 1/sqrt(D). Without a gradient ``ops.flash_attention``
+    with ``causal=False``, with one the reference's ``_attend_block``."""
+    if not torch.is_grad_enabled():
+        return ops.flash_attention(q, k, v, causal=False, softcap=softcap,
+                                   scale=scale)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    qpos = torch.arange(q.shape[1], device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    return _attend_block(q, k, v, qpos, kpos, scale, softcap, None,
+                         kv_chunk=kv_chunk, causal=False)
 
 
 def blockwise_attention(q, k, v, *, q_chunk: int,

@@ -1,6 +1,8 @@
-"""Model zoo: the decoder-only ``Model`` of every ported architecture
-(the char-LM, Gemma2, and the attention-based zoo: dense, MoE, MLA and
-the vision-prefixed PaliGemma).
+"""Model zoo: the ``Model`` of every architecture of the reference (the
+char-LM, Gemma2, the attention-based zoo: dense, MoE, MLA and the
+vision-prefixed PaliGemma; the recurrent stacks: RecurrentGemma's RG-LRU
+and local attention, xLSTM's mLSTM and sLSTM; and SeamlessM4T's
+encoder-decoder, ``models.encdec.EncDecModel``).
 
 ``build(cfg)`` returns a ``Model``:
 
@@ -21,8 +23,9 @@ again before the loss. The embedding may be tied (the unembedding is
 ``embed.T``) or not (``head``), scaled by sqrt(d) (Gemma) and joined by
 learned positions (the char-LM). Prefill runs without a gradient, so
 its attention is the flash kernel on the card; ``decode_step`` updates
-the caches in place and returns them. The encoder-decoder model is not
-ported yet.
+the caches in place and returns them. An encoder-decoder batch carries
+``src_embeds`` (B, S_src, E_f) instead of patches (see
+``models.encdec``).
 """
 from __future__ import annotations
 
@@ -107,7 +110,8 @@ def logits_fn(p, x, cfg: ModelConfig):
 
 def _decode_positions(caches) -> Optional[torch.Tensor]:
     """Absolute position of the new token, (1, 1): any attention cache's
-    index (the stacked per-unit indices are all equal)."""
+    index (the stacked per-unit indices are all equal); None for a
+    purely recurrent stack (no attention cache, positions unused)."""
     def find(tree):
         if isinstance(tree, dict):
             if "index" in tree:
@@ -221,4 +225,7 @@ class Model:
 
 
 def build(cfg: ModelConfig) -> Model:
+    if cfg.encdec:
+        from repro_torch.models.encdec import EncDecModel
+        return EncDecModel(cfg)
     return Model(cfg)

@@ -17,8 +17,7 @@ Then the port alone: masked against sync within the reference's own
 bounds (1e-6 train loss, 2e-3 val loss), the entry points
 (``run_federated``, ``launch.train.main``) writing history and
 checkpoint, the pieces earlier slices refused now building and running,
-and a model config not ported yet (the recurrent RecurrentGemma) raising
-``NotImplementedError``.
+and the recurrent and encoder-decoder model configs resolving.
 """
 import json
 
@@ -279,8 +278,10 @@ def _train(setup, monkeypatch, tmp, *argv):
 
 def _entry_arch(setup, monkeypatch, tmp):
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-        get_config("recurrentgemma-2b")
+    for arch in ("recurrentgemma-2b", "xlstm-1.3b", "seamless-m4t-medium"):
+        assert get_config(arch).name == arch
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
 
 
 def _entry_stragglers(setup, monkeypatch, tmp):
@@ -308,9 +309,10 @@ def _entry_train_batched(setup, monkeypatch, tmp):
     _entry_train_batched,
 ], ids=["arch", "stragglers", "train_server_opt", "train_batched"])
 def test_unported_entry_points_raise(setup, call, tmp_path, monkeypatch):
-    """The model zoo's recurrent and encoder-decoder configs still raise
-    (ROADMAP queue 1 item 11b; here RecurrentGemma); the entry points the
-    earlier slices refused now run: deadline stragglers from
-    ``make_dynamics``, and ``launch.train`` with ``--server-opt`` and
-    ``--executor batched`` for one round on the CPU at the tiny size."""
+    """The entry points the earlier slices refused now run: the model
+    zoo's recurrent and encoder-decoder configs resolve (RecurrentGemma,
+    xLSTM, SeamlessM4T; an unknown id raises ``KeyError``), deadline
+    stragglers from ``make_dynamics``, and ``launch.train`` with
+    ``--server-opt`` and ``--executor batched`` for one round on the CPU
+    at the tiny size."""
     call(setup, monkeypatch, tmp_path)

@@ -6,7 +6,10 @@ twin the CPU path and ``ops.flash_attention`` use) against
 ``flash_attention_bhsd`` run in interpret mode, as
 ``tests/test_kernels_flash.py`` runs it, on the same numpy inputs:
 causal, sliding window, softcap, bidirectional, GQA with g in {1, 2},
-f32 and bf16, S a multiple of the Pallas block.
+f32 and bf16, S a multiple of the Pallas block; and the
+cross-attention's non-causal pairs with q and k of different lengths
+(Sq in {1, 7, 129} against Sk in {128, 1000, 4096}, D 64), the Pallas
+kernel run with one q block and a k block that divides Sk.
 
 Tolerances: f32 within 2e-5 absolute at unit-scale inputs (all sides do
 fp32 math, summing in other orders; the reference's own kernel tests
@@ -27,7 +30,9 @@ On a card (marked ``cuda``): the CUDA kernel against the twin on the
 same CUDA tensors, at the same tolerances, with S not a multiple of any
 tile, S = 1 and D not a multiple of 32; the tensor-core variant at its
 tile edges; the f32 row variant at the char-LM eval's shapes; strided
-(non-contiguous) inputs; and the per-variant launch counts.
+(non-contiguous) inputs; the per-variant launch counts; and the
+cross-attention's non-causal pairs with Sq != Sk at D 64 (SeamlessM4T)
+and D 256 with 10 query heads over 1 (RecurrentGemma's MQA group).
 """
 import numpy as np
 import pytest
@@ -144,6 +149,42 @@ def test_twin_matches_pallas_kernel_in_interpret_mode(case, dtype, J):
                   blk_q=64, blk_k=64, interpret=True).transpose(0, 2, 1, 3)
     assert_close(got.to(torch.float32).numpy(), np.asarray(want, np.float32),
                  dtype)
+
+
+#: non-causal pairs with q and k of different lengths (the cross-attention:
+#: Sq 4,096 in prefill and 1 in decode against Sk 4,096 source frames, at
+#: sizes the CPU holds), and the Pallas k block for each Sk
+CROSS = [(sq, sk) for sq in (1, 7, 129) for sk in (128, 1000, 4096)]
+CROSS_BLK_K = {128: 128, 1000: 200, 4096: 512}
+
+
+def cross_inputs(seed, b, sq, sk, h, kvh, d, dtype):
+    """Unit normal q (B,Sq,H,D) and k, v (B,Sk,KVH,D), as ``inputs``."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(b, s, heads, d)).astype(
+        np.float32)).to(getattr(torch, dtype))
+        for s, heads in ((sq, h), (sk, kvh), (sk, kvh))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk", CROSS, ids=str)
+def test_twin_matches_pallas_kernel_with_sq_ne_sk(sq, sk, dtype, J):
+    """Bidirectional attention with Sq != Sk: the twin against the
+    reference's oracle and against the Pallas kernel in interpret mode
+    (one q block of Sq rows, k blocks of ``CROSS_BLK_K[sk]``)."""
+    jnp, jref, pallas = J
+    q, k, v = cross_inputs(sq * 7 + sk, 1, sq, sk, 4, 2, 64, dtype)
+    got = ref.flash_attention_ref(q, k, v, causal=False)
+    assert tuple(got.shape) == (1, sq, 4, 64) and got.dtype == q.dtype
+    want = jref.flash_attention_ref(to_jax(q, jnp), to_jax(k, jnp),
+                                    to_jax(v, jnp), causal=False)
+    assert_close(got.to(torch.float32).numpy(), np.asarray(want, np.float32),
+                 dtype)
+    tq, tk, tv = (to_jax(x, jnp).transpose(0, 2, 1, 3) for x in (q, k, v))
+    kernel = pallas(tq, tk, tv, causal=False, blk_q=sq,
+                    blk_k=CROSS_BLK_K[sk], interpret=True)
+    assert_close(got.to(torch.float32).numpy(),
+                 np.asarray(kernel.transpose(0, 2, 1, 3), np.float32), dtype)
 
 
 def test_scale_argument_matches_reference(J):
@@ -362,6 +403,28 @@ class TestCudaFlash:
         for out in (got, got_bhsd):
             assert out.dtype == q.dtype and out.shape == q.shape
             assert over_bound(out.cpu(), want.cpu(), dtype) == 0
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("sq,sk", CROSS, ids=str)
+    def test_kernel_with_sq_ne_sk(self, card, sq, sk, dtype):
+        """Non-causal, q and k of different lengths (the
+        cross-attention), with and without a softcap: D 64 (SeamlessM4T,
+        H 16 over 16 and 4 over 2) and D 256 with 10 query heads over 1
+        (RecurrentGemma's group)."""
+        for h, kvh, d in ((16, 16, 64), (4, 2, 64), (10, 1, 256)):
+            q, k, v = (x.to(card) for x in cross_inputs(
+                sq + sk + h, 1, sq, sk, h, kvh, d, dtype))
+            for softcap in (None, 50.0):
+                before = ops.LAUNCHES["flash_attention_bhsd"]
+                got = ops.flash_attention(q, k, v, causal=False,
+                                          softcap=softcap)
+                want = ref.flash_attention_ref(q, k, v, causal=False,
+                                               softcap=softcap)
+                torch.cuda.synchronize()
+                assert ops.LAUNCHES["flash_attention_bhsd"] == before + 1
+                assert got.dtype == q.dtype and got.shape == q.shape
+                assert over_bound(got.cpu(), want.cpu(), dtype) == 0, \
+                    (h, kvh, d, softcap)
 
     def test_variant_counts(self, card):
         """One launch per call, counted in total and under the variant

@@ -24,20 +24,23 @@ def _env():
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Import every repro_torch module (and chip_smoke, the profile script
-    and the A/B script) in a fresh interpreter; neither jax nor any repro
-    module may be loaded."""
+    """Import every repro_torch module (and chip_smoke, the profile script,
+    the A/B script and the xLSTM drift script) in a fresh interpreter;
+    neither jax nor any repro module may be loaded."""
     import repro_torch
     names = sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))
     assert "repro_torch.core.client" in names and len(names) >= 25
     for sub in ("fl.engine", "constraints.knobs", "checkpointing.checkpoint",
-                "launch.train"):
+                "launch.train", "models.rglru", "models.ssm",
+                "models.encdec", "configs.recurrentgemma_2b",
+                "configs.xlstm_1_3b", "configs.seamless_m4t_medium"):
         assert f"repro_torch.{sub}" in names
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{REPO!r}, {os.path.join(REPO, 'scripts')!r}]\n"
-        f"for name in {names!r} + ['chip_smoke', 'profile_port', 'wire_ab']:\n"
+        f"for name in {names!r} + ['chip_smoke', 'profile_port', "
+        "'wire_ab', 'xlstm_bf16_drift']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'jaxlib', 'msgpack')) or\n"

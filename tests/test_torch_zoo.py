@@ -1,9 +1,12 @@
-"""The attention-based model zoo of the port (Qwen2, Mistral-Large,
-Minitron, PaliGemma, Phi-3.5-MoE, DeepSeek-V3) against the JAX package,
-each at its SMOKE size, from JAX-initialised parameters bridged by
+"""The model zoo of the port (Qwen2, Mistral-Large, Minitron, PaliGemma,
+Phi-3.5-MoE, DeepSeek-V3; RecurrentGemma, xLSTM, SeamlessM4T) against
+the JAX package, each at its SMOKE size, from JAX-initialised parameters
+bridged by
 ``repro_torch.models.convert``; then the registry, the configs, the
-list-valued parameter subtrees, the freezing mask of a prefixed stack,
-``synthetic_batch``, the schedules and the optimizer utilities.
+list-valued parameter subtrees and the new layouts' round trips, the
+freezing mask of a prefixed stack, ``synthetic_batch``, the schedules
+and the optimizer utilities. SeamlessM4T's batch carries 40 source
+frames beside its 48 target tokens.
 
 As ``tests/test_arch_smoke.py`` does, the MoE configs run at capacity
 factor 8 (no token is dropped, so decode and a prefill over the same
@@ -15,7 +18,12 @@ other orders (the port's prefill attention is the flash twin, the
 reference's its blockwise path; the port's CE one sum, the reference's
 chunked), so prefill logits, caches and 12 decode steps are held to
 1e-5 absolute (values of order 1), ``train_loss``'s ce and aux to 1e-5
-relative. Parameter paths, shapes and counts, synthetic batches and the
+relative. The recurrent states that sum over the whole prompt (RG-LRU
+``h``, the mLSTM's ``C``, ``n``, ``m``, the sLSTM's ``h``, ``c``,
+``n``, ``m``) are held to 1e-5 of max(1, their largest magnitude): the
+sLSTM's normaliser ``n`` reaches ~13 at SMOKE size, and fp32 rounding
+scales with the value (measured gap 2.4e-5 there, 1.9e-6 relative).
+Parameter paths, shapes and counts, synthetic batches and the
 schedules are exact; the optimizer utilities within 1e-6 relative (fp32
 sums in one order in both).
 
@@ -49,7 +57,21 @@ ATOL = 1e-5
 LOSS_RTOL = 1e-5
 B, PROMPT, STEPS = 2, 48, 12
 NEW = ["qwen2-72b", "mistral-large-123b", "minitron-8b", "paligemma-3b",
-       "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"]
+       "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "recurrentgemma-2b",
+       "xlstm-1.3b", "seamless-m4t-medium"]
+RECURRENT = ["recurrentgemma-2b", "xlstm-1.3b", "seamless-m4t-medium"]
+#: recurrent-state cache leaves (see the module docstring)
+STATES = ("h", "c", "n", "m", "C")
+SRC = 40
+
+
+def flash_per_prefill(cfg) -> int:
+    """Attention calls of one prefill: each attention layer's, and under
+    an encoder-decoder each encoder layer's and each decoder layer's self-
+    and cross-attention."""
+    if cfg.encdec:
+        return cfg.enc_layers + 2 * cfg.num_layers
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
 
 
 def no_drops(cfg):
@@ -60,12 +82,16 @@ def no_drops(cfg):
 
 def make_batch(cfg, seed=0):
     """NumPy tokens (B, PROMPT + STEPS), the prompt's batch and, for a
-    vision frontend, its patch embeddings."""
+    vision frontend, its patch embeddings; for an encoder-decoder, SRC
+    source frames."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (B, PROMPT + STEPS)).astype(
         np.int32)
     batch = {"tokens": toks[:, :PROMPT], "targets": toks[:, 1:PROMPT + 1]}
-    if cfg.frontend is not None:
+    if cfg.encdec:
+        batch["src_embeds"] = rng.normal(
+            size=(B, SRC, cfg.frontend.embed_dim)).astype(np.float32)
+    elif cfg.frontend is not None:
         batch["patch_embeds"] = rng.normal(
             size=(B, cfg.frontend.num_prefix_tokens,
                   cfg.frontend.embed_dim)).astype(np.float32)
@@ -119,6 +145,10 @@ def assert_caches_close(got, want):
         assert got[name].shape == want[name].shape, name
         if name.endswith("index"):
             np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+        elif name.split(".")[-1] in STATES:
+            atol = ATOL * max(1.0, float(np.abs(want[name]).max()))
+            np.testing.assert_allclose(got[name], want[name], atol=atol,
+                                       rtol=0, err_msg=name)
         else:
             np.testing.assert_allclose(got[name], want[name], atol=ATOL,
                                        rtol=0, err_msg=name)
@@ -157,13 +187,18 @@ def test_configs_match_reference(arch):
 
 
 def test_registry():
+    """Every architecture of the reference resolves, in its order, and
+    builds (the encoder-decoder as ``EncDecModel``); an unknown id
+    raises ``KeyError``."""
     from repro.configs import ARCH_IDS as J_ARCH_IDS
-    assert ARCH_IDS == [a for a in J_ARCH_IDS if a in ARCH_IDS]
+    from repro_torch.models.encdec import EncDecModel
+    assert ARCH_IDS == J_ARCH_IDS
     assert set(NEW) | {"gemma2-9b"} == set(ARCH_IDS)
-    for arch in ("recurrentgemma-2b", "xlstm-1.3b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 11"):
-            get_config(arch)
+    for arch in RECURRENT:
+        model = build(get_config(arch))
+        assert model.cfg.name == arch
+        assert isinstance(model, EncDecModel) == (arch == RECURRENT[-1])
+        assert build(get_smoke_config(arch)).param_count()["total"] > 0
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -215,8 +250,9 @@ def test_train_loss_matches_reference(pairs, arch):
 @pytest.mark.parametrize("arch", NEW)
 def test_prefill_matches_reference(pairs, arch, monkeypatch):
     """Logits and caches of a 48-token prompt (PaliGemma: plus its 8
-    patch tokens) through ``make_prefill_step``, each attention on the
-    flash route."""
+    patch tokens; SeamlessM4T: over 40 source frames) through
+    ``make_prefill_step``, each attention on the flash route (xLSTM has
+    none)."""
     s = pair(pairs, arch)
     calls = []
     real = ops.flash_attention
@@ -230,7 +266,7 @@ def test_prefill_matches_reference(pairs, arch, monkeypatch):
                                    max_new_tokens=STEPS)
     logits, caches = step(s["tp"], tbatch(s["batch"]))
     cfg = s["tcfg"]
-    assert len(calls) == cfg.num_layers
+    assert len(calls) == flash_per_prefill(cfg)
     if cfg.mla:      # v zero-padded to the q/k width
         assert set(calls) == {cfg.mla.qk_nope_head_dim
                               + cfg.mla.qk_rope_head_dim}
@@ -261,7 +297,8 @@ def test_decode_matches_reference(pairs, arch):
                                rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "deepseek-v3-671b",
+                                  *RECURRENT])
 def test_init_cache_matches_reference(pairs, arch):
     s = pair(pairs, arch)
     got = flat_np(s["tmodel"].init_cache(B, 10_000, long=True, device="cpu"))
@@ -311,6 +348,41 @@ def test_list_subtrees_round_trip(pairs):
     assert [int(p["w"][0]) for p in back["prefix"]] == list(range(12))
 
 
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_new_layouts_round_trip(pairs, arch):
+    """``params_from_numpy`` -> ``params_to_numpy`` gives the JAX tree
+    back, leaf for leaf and dtype for dtype: RecurrentGemma's
+    ``stack.suffix`` list and ``rec`` blocks, xLSTM's ``mlstm`` /
+    ``slstm`` blocks, SeamlessM4T's top-level ``io`` / ``enc`` / ``dec``
+    (with ``io.enc_norm``, ``io.frontend_proj``); the fp32 leaves of a
+    bf16 model stay fp32."""
+    s = pair(pairs, arch)
+    tree = params_to_numpy(s["tp"])
+    want = flat_paths(s["np_params"])
+    assert list(flat_paths(tree)) == list(want)
+    for name, leaf in want.items():
+        got = flat_paths(tree)[name]
+        assert got.dtype == leaf.dtype, name
+        np.testing.assert_array_equal(got, leaf, err_msg=name)
+    expect = {"recurrentgemma-2b": ["stack.suffix.1.rec.lambda_raw",
+                                    "stack.units.b2.attn.wq"],
+              "xlstm-1.3b": ["stack.units.b0.mlstm.w_f",
+                             "stack.units.b1.slstm.b_in"],
+              "seamless-m4t-medium": ["io.enc_norm.bias",
+                                      "io.frontend_proj",
+                                      "dec.cross_attn.wk", "enc.attn.wo"]}
+    for name in expect[arch]:
+        assert name in want, name
+    from repro.configs import get_config as jcfg_of
+    full = jbuild(jcfg_of(arch).replace(num_layers=s["jcfg"].num_layers))
+    shapes = jax.eval_shape(full.init, jax.random.PRNGKey(0))
+    bf16 = build(get_config(arch).replace(num_layers=s["tcfg"].num_layers))
+    own = bf16._init_tree(None, torch.device("meta"))
+    for name, leaf in flat_paths(shapes).items():
+        assert str(flatten(own)[name].dtype).split(".")[-1] == \
+            str(leaf.dtype), name
+
+
 @pytest.mark.parametrize("k", [1, 2, 3])
 def test_freezing_mask_of_a_prefixed_stack(pairs, k):
     """The dense prefix layer freezes by its own layer index, as in the
@@ -326,7 +398,8 @@ def test_freezing_mask_of_a_prefixed_stack(pairs, k):
                                       np.asarray(want[name]), err_msg=name)
 
 
-@pytest.mark.parametrize("arch", ["paligemma-3b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["paligemma-3b", "phi3.5-moe-42b-a6.6b",
+                                  *RECURRENT])
 def test_synthetic_batch_equal(arch):
     from repro.data.synthetic import synthetic_batch as j_batch
     from repro_torch.data import synthetic_batch

@@ -1,10 +1,17 @@
-"""The attention-based zoo on a card (marked ``cuda``; skips without
-one), with no JAX, so that it runs where the port does.
+"""The model zoo on a card (marked ``cuda``; skips without one), with no
+JAX, so that it runs where the port does.
 
 - Each new config's SMOKE prefill (f32: the flash kernel's f32
   variants) on the card against the same prefill on the CPU from the
   same weights: logits and every cache within 1e-4 of the tensor's
   largest magnitude (fp32 on both, sums in other orders, no TF32).
+- RecurrentGemma, xLSTM and SeamlessM4T at SMOKE size (f32) likewise,
+  prefill and then 4 decode steps fed the same tokens, card against CPU
+  from the same weights: logits and every cache (the recurrent states
+  included) within the same 1e-4; the flash kernel once per attention
+  layer in prefill (SeamlessM4T: its encoder layers and the decoder's
+  self- and cross-attention) and, in SeamlessM4T's decode, once per
+  decoder layer (the cross-attention at Sq 1).
 - MLA at DeepSeek-V3's head widths (q/k 128 + 64 = 192, v 128, padded
   to 192 for the kernel) in bf16 on the card, the flash kernel's
   ``mma_bf16`` variant, against the same layer in f32 on the CPU:
@@ -25,6 +32,7 @@ from repro_torch.models.convert import flatten, unflatten  # noqa: E402
 
 NEW = ["qwen2-72b", "mistral-large-123b", "minitron-8b", "paligemma-3b",
        "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"]
+RECURRENT = ["recurrentgemma-2b", "xlstm-1.3b", "seamless-m4t-medium"]
 RTOL = 1e-4
 
 
@@ -61,6 +69,50 @@ def test_smoke_prefill_card_matches_cpu(card, arch):
         w = w.double()
         gap = float((g.cpu().double() - w).abs().max())
         assert gap <= RTOL * max(float(w.abs().max()), 1e-30), name
+
+
+def flash_per_prefill(cfg) -> int:
+    if cfg.encdec:
+        return cfg.enc_layers + 2 * cfg.num_layers
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+
+
+def assert_within(name, got, want):
+    want = want.double()
+    gap = float((got.cpu().double() - want).abs().max())
+    assert gap <= RTOL * max(float(want.abs().max()), 1e-30), (name, gap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_smoke_card_matches_cpu(card, arch):
+    cfg = get_smoke_config(arch)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(4), "cpu").params()
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic_batch(cfg, 2, 96, seed=4).items()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 4),
+                         generator=torch.Generator().manual_seed(5))
+    want, want_cache = model.prefill(params, batch, max_new_tokens=4)
+    before = ops.LAUNCHES["flash_attention_bhsd"]
+    got, got_cache = model.prefill(to(params, card), to(batch, card),
+                                   max_new_tokens=4)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bhsd"] == \
+        before + flash_per_prefill(cfg)
+    assert_within("prefill logits", got, want)
+    before = ops.LAUNCHES["flash_attention_bhsd"]
+    for i in range(4):
+        want, want_cache = model.decode_step(params, want_cache,
+                                             toks[:, i:i + 1])
+        got, got_cache = model.decode_step(to(params, card), got_cache,
+                                           toks[:, i:i + 1].to(card))
+        assert_within(f"decode {i}", got, want)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bhsd"] == before + (
+        4 * cfg.num_layers if cfg.encdec else 0)
+    for name, w in flatten(want_cache).items():
+        assert_within(name, flatten(got_cache)[name], w)
 
 
 @pytest.mark.cuda
