@@ -140,14 +140,33 @@ before the final line:
    Mistral-Large, Minitron, PaliGemma, Phi-3.5-MoE, DeepSeek-V3,
    RecurrentGemma, xLSTM, SeamlessM4T) at its SMOKE size, f32, prefill
    on the card against the CPU from the same weights, within 1e-4.
-7. a ``kernel_off_path`` line for the limb entry of the masked sum (all
+7. train: ``launch.steps.make_train_step`` (the reference's train step,
+   each stacked unit and loss chunk recomputed in the backward pass).
+   First the char-LM and each zoo config at SMOKE size, f32: 2 AdamW
+   steps (2 microbatches) on the card under deterministic algorithms and
+   2 on the CPU from the same weights: losses within 1e-4 relative, each
+   leaf's change within 5e-2 of its largest element and Adam's moments
+   within 1e-4 of theirs. Then each zoo config at full width in bf16,
+   depth cut to fit (``TRAIN_DEPTH``: Gemma2 13 of 42, Qwen2 2,
+   Mistral-Large 2, Minitron 8, PaliGemma 18 of 18, Phi-3.5-MoE 2,
+   DeepSeek-V3 2, RecurrentGemma 26 of 26, xLSTM 48 of 48, SeamlessM4T
+   12 + 12),
+   weights drawn on the card: 2 AdamW steps on one batch of 2 x 4,096
+   tokens (xLSTM: 2 x 64) in 2 microbatches under the freezing mask at
+   k = 1; the loss finite and falling, every frozen part bit-equal, no
+   flash launch. Each line: the step's seconds, peak memory beside the
+   port's dry-run estimate of the same setting (``launch.dryrun``, run in
+   worker processes meanwhile), MFU against 989 TFLOP/s; Gemma2's line
+   is followed by its dry-run record's roofline.
+8. a ``kernel_off_path`` line for the limb entry of the masked sum (all
    the summary's keys; no main path runs it, so its launches must be 0),
    the ``{"kernels": [...]}`` summary of the main paths' kernels, the
    nvidia-smi line, and the final ``{"ok": true, ...}`` line.
 
-Each path of phases 3 to 6 (each engine run, each timed prefill) runs with
-the launch counters zeroed just before it and read just after, and
-fails if a kernel of that path was never launched.
+Each path of phases 3 to 7 (each engine run, each timed prefill, each
+train step) runs with the launch counters zeroed just before it and read
+just after; phases 3 to 6 fail if a kernel of their path was never
+launched, phase 7 if the flash kernel was launched under a gradient.
 
 Where the time goes under torch.profiler is ``scripts/profile_port.py``'s
 work, not this script's.
@@ -303,6 +322,68 @@ SMOKE_CARD_RTOL = 1e-4
 #: |loss(card) - loss(cpu)| / |loss(cpu)| allowed for one microbatch:
 #: fp32 on both, sums taken in another order (no TF32 on the card)
 CPU_CARD_RTOL = 1e-4
+#: the train phase: ``launch.steps.make_train_step`` with AdamW at
+#: ``train_4k``'s length (4,096) cut to batch 2 in 2 microbatches, under
+#: a freezing mask at k = 1, 2 steps on the same batch. bf16 parameters
+#: of |p| ~ 0.02 move by ~8 ulps at lr 1e-3.
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 2
+TRAIN_MICROBATCHES = 2
+TRAIN_K = 1
+TRAIN_STEPS = 2
+TRAIN_LR = 1e-3
+#: full-width depth of each zoo config in the step: as many layers as
+#: fit at ~16 B a parameter (bf16 parameter and gradient, fp32 moments,
+#: the fp32 accumulator of 2 microbatches) beside the activations, which
+#: the port's dry-run estimates (``launch.dryrun``; <= ~76 GB). Widths
+#: unchanged; SeamlessM4T, PaliGemma, RecurrentGemma and xLSTM whole;
+#: 2 layers at least, so that k = 1 freezes a part (at depth 1 it
+#: freezes nothing).
+TRAIN_DEPTH = {
+    "gemma2-9b": 13, "qwen2-72b": 2, "mistral-large-123b": 2,
+    "minitron-8b": 8, "paligemma-3b": 18, "phi3.5-moe-42b-a6.6b": 2,
+    "deepseek-v3-671b": 2, "recurrentgemma-2b": 26, "xlstm-1.3b": 48,
+    "seamless-m4t-medium": 12}
+TRAIN_NOTES = {
+    "qwen2-72b":
+        "2 of 80 layers (4.2 B parameters, 2.5 B of them the embedding and "
+        "the head; dry-run 75.7 GB)",
+    "deepseek-v3-671b":
+        "2 of 61 layers, of the 3 of the dense MLA prefix: the prefix is "
+        "not recomputed (as in the reference), so each prefix layer keeps "
+        "~10 GB of 128-head scores at 4,096 tokens (dry-run: 94 GB at 3 "
+        "layers, 74 GB at 2); one MoE layer is 11.9 B parameters (~140 GB "
+        "with AdamW): MoE training at full width is Phi-3.5-MoE's",
+    "xlstm-1.3b":
+        "tokens cut to 2 x 64 (not the depth): each sLSTM layer steps once "
+        "per token on the host, forward, recompute and backward (2 x 128: "
+        "20 s on the card), and the dry-run traces every such step",
+}
+#: xLSTM's tokens per sequence in the full-width step
+TRAIN_XLSTM_TOKENS = 64
+TRAIN_REDUCES = ("train_4k (B 256, S 4,096): batch cut to 2 (2 "
+                 "microbatches of 1), depth cut to fit (TRAIN_DEPTH); widths "
+                 "unchanged")
+#: the train phase at SMOKE size, f32: card against CPU, 2 steps each
+#: from the same weights. The losses within ``TRAIN_SMOKE_RTOL``
+#: relative; each leaf's change over the 2 steps (card against CPU)
+#: within ``TRAIN_SMOKE_STEP_RTOL`` of that change's largest element, and
+#: each leaf of Adam's mu and nu within ``TRAIN_SMOKE_STATE_RTOL`` of its
+#: largest element. The moments see what Adam's normalisation hides from
+#: the change: a gradient scaled by 2 (a wrong microbatch scale) moves
+#: mu by 2x and nu by 4x. The bounds stand above the readings on the
+#: H100 (changes 8.2e-4 to 1.9e-2, xLSTM's the largest; moments at most
+#: 7.1e-6): Adam turns the float noise in a gradient near eps into a
+#: visible part of that element's step. AdamW's eps is 1e-6 here: at its
+#: default 1e-8 an element whose gradient is of order 1e-8 turns the
+#: ~1e-9 float noise between card and CPU in that gradient into up to
+#: half a step, so the change's check would measure Adam's amplification
+#: of the noise rather than the card
+TRAIN_SMOKE_LR = 1e-4
+TRAIN_SMOKE_EPS = 1e-6
+TRAIN_SMOKE_RTOL = 1e-4
+TRAIN_SMOKE_STEP_RTOL = 5e-2
+TRAIN_SMOKE_STATE_RTOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -2009,6 +2090,248 @@ def drive_serve_smoke(dev) -> int:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the train step (launch.steps.make_train_step)
+# ---------------------------------------------------------------------------
+
+
+def train_setting(arch: str):
+    """-> (config at the step's depth, tokens per sequence, published
+    depth)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return (cfg.replace(num_layers=TRAIN_DEPTH[arch]),
+            TRAIN_XLSTM_TOKENS if arch == "xlstm-1.3b" else TRAIN_SEQ,
+            cfg.num_layers)
+
+
+def train_dryrun(arch: str) -> dict:
+    """The port's dry-run record of the full-width step's setting (run in
+    a worker process while the card trains)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+
+    cfg, seq, _ = train_setting(arch)
+    shape = InputShape("train_4k", seq, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    rec = dryrun.analyze(cfg, shape, microbatches=TRAIN_MICROBATCHES)
+    rec["roofline"] = dryrun.roofline(rec, cfg, shape)
+    rec["trace_s"] = time.perf_counter() - t0
+    return rec
+
+
+def leaf_gaps(got: dict, want: dict) -> dict:
+    """Per leaf: max |got - want| over max |want| (the absolute gap where
+    ``want`` is all zero)."""
+    out = {}
+    for k, w in want.items():
+        top = float(w.abs().max()) if w.numel() else 0.0
+        gap = float((got[k] - w).abs().max()) if w.numel() else 0.0
+        out[k] = gap / top if top else gap
+    return out
+
+
+def drive_train_smoke(dev) -> None:
+    """The char-LM and each zoo config at SMOKE size, f32: 2 steps of
+    ``make_train_step`` (AdamW, 2 microbatches) on the card under
+    deterministic algorithms and 2 on the CPU, from the same weights and
+    batch; losses within ``TRAIN_SMOKE_RTOL`` relative, each leaf's
+    change within ``TRAIN_SMOKE_STEP_RTOL`` of its largest element, Adam's
+    moments within ``TRAIN_SMOKE_STATE_RTOL`` of theirs; no flash
+    launch."""
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+
+    for arch in ("charlm-shakespeare", *ARCH_IDS):
+        cfg = get_smoke_config(arch)
+        model = build(cfg)
+        init = model.init(torch.Generator().manual_seed(6), "cpu").params()
+        batch = {k: torch.from_numpy(v) for k, v in
+                 synthetic_batch(cfg, 2, 64, seed=6).items()}
+        opt = adamw(TRAIN_SMOKE_LR, eps=TRAIN_SMOKE_EPS)
+        step = make_train_step(model, opt, microbatches=TRAIN_MICROBATCHES)
+        out = {}
+        for where in ("cpu", dev):
+            params = {k: v.clone().to(where) for k, v in init.items()}
+            b = {k: v.to(where) for k, v in batch.items()}
+            state = opt.init(params)
+            losses = []
+            ops.reset_launches()
+            with (deterministic() if where != "cpu"
+                  else contextlib.nullcontext()):
+                for _ in range(TRAIN_STEPS):
+                    params, state, loss = step(params, state, b)
+                    losses.append(float(loss))
+            host = lambda tree: {k: v.cpu() for k, v in tree.items()}
+            out[str(where)] = (
+                losses, {k: v.cpu() - init[k] for k, v in params.items()},
+                host(state.mu), host(state.nu),
+                ops.LAUNCHES["flash_attention_bhsd"])
+        want, got = out["cpu"], out[str(dev)]
+        flash = got[4]
+        loss_rel = max(abs(g - w) / abs(w) for g, w in zip(got[0], want[0]))
+        gaps = {part: leaf_gaps(got[i], want[i])
+                for i, part in ((1, "step"), (2, "mu"), (3, "nu"))}
+        worst = {part: max(g, key=g.get) for part, g in gaps.items()}
+        emit({"phase": "train_smoke", "config": cfg.name,
+              "layers": cfg.num_layers, "dtype": str(cfg.param_dtype),
+              "loss_card": got[0], "loss_cpu": want[0], "loss_rel": loss_rel,
+              **{f"{part}_rel": gaps[part][k] for part, k in worst.items()},
+              **{f"{part}_worst": k for part, k in worst.items()},
+              "flash_launches": flash,
+              "bounds": {"loss": TRAIN_SMOKE_RTOL,
+                         "step": TRAIN_SMOKE_STEP_RTOL,
+                         "mu": TRAIN_SMOKE_STATE_RTOL,
+                         "nu": TRAIN_SMOKE_STATE_RTOL}})
+        check(loss_rel <= TRAIN_SMOKE_RTOL,
+              f"{arch} SMOKE train: card and CPU losses part by {loss_rel}")
+        for part, bound in (("step", TRAIN_SMOKE_STEP_RTOL),
+                            ("mu", TRAIN_SMOKE_STATE_RTOL),
+                            ("nu", TRAIN_SMOKE_STATE_RTOL)):
+            k = worst[part]
+            check(gaps[part][k] <= bound,
+                  f"{arch} SMOKE train: card and CPU {part} part by "
+                  f"{gaps[part][k]} of its largest element ({k})")
+        check(flash == 0, f"{arch} SMOKE train launched flash {flash} times")
+
+
+def frozen_parts(params, mask) -> dict:
+    """Host copies of every frozen part: whole leaves under a 0 scalar
+    mask, the frozen units of stacked leaves."""
+    out = {}
+    for name, m in mask.items():
+        if m.ndim == 0:
+            if float(m) == 0.0:
+                out[name] = (None, params[name].cpu())
+        else:
+            units = torch.nonzero(m.reshape(-1) == 0).reshape(-1)
+            if len(units):
+                out[name] = (units, params[name][units].cpu())
+    return out
+
+
+def drive_train_full(dev, smi: str, records) -> None:
+    """Each zoo config at full width (depth ``TRAIN_DEPTH``), bf16, weights
+    drawn on the card: 2 AdamW steps of ``make_train_step`` at B 2 x
+    4,096 (xLSTM: 2 x ``TRAIN_XLSTM_TOKENS``) in 2 microbatches under the
+    freezing mask at k = 1, on the same batch. The loss must be finite
+    and fall from step 1 to step 2, the mask freeze some part and every
+    frozen part keep its bits, and no flash kernel launch (attention
+    under a gradient is the plain ``blockwise_attention``). Prints the step's seconds, the peak memory
+    beside the dry-run's estimate (``records``: futures of
+    ``train_dryrun``), and MFU (model FLOPs / (s x 989 TFLOP/s))."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.freezing import mask_tree
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+
+    for arch in TRAIN_DEPTH:
+        cfg, seq, published = train_setting(arch)
+        shape = InputShape("train_4k", seq, TRAIN_BATCH, "train")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            dev).params()
+        opt = adamw(TRAIN_LR)
+        state = opt.init(params)
+        mask = mask_tree(params, cfg, TRAIN_K)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 synthetic_batch(cfg, TRAIN_BATCH, seq, seed=7).items()}
+        frozen = frozen_parts(params, mask)
+        step = make_train_step(model, opt, True, TRAIN_MICROBATCHES)
+        ops.reset_launches()
+        losses, seconds = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, batch, mask)
+            losses.append(float(loss))
+            seconds.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        flash = ops.LAUNCHES["flash_attention_bhsd"]
+        kept = all(torch.equal((params[name] if units is None
+                                else params[name][units]).cpu(), before)
+                   for name, (units, before) in frozen.items())
+        del params, state, batch
+        rec = records[arch].result()
+        est = rec["memory"]["per_device_total_gb"] * 1e9
+        median = statistics.median(seconds)
+        mf = dryrun.model_flops(cfg, shape)
+        emit({"phase": "train", "config": cfg.name,
+              "layers": f"{cfg.num_layers} of {published}",
+              "params": model.param_count()["total"],
+              "dtype": str(cfg.param_dtype).split(".")[-1],
+              "batch": [TRAIN_BATCH, seq], "microbatches":
+              TRAIN_MICROBATCHES, "mask_k": TRAIN_K, "losses": losses,
+              "seconds": seconds, "median_s": median,
+              "tokens_per_s": TRAIN_BATCH * seq / median,
+              "peak_gb": peak / 1e9, "dryrun_gb": est / 1e9,
+              "peak_over_dryrun": peak / est,
+              "dryrun_trace_s": rec["trace_s"], "model_flops": mf,
+              "mfu": mf / (median * PEAK_FLOPS_BF16),
+              "frozen_parts": len(frozen), "flash_launches": flash,
+              "reduces": TRAIN_NOTES.get(arch, TRAIN_REDUCES),
+              "nvidia_smi": smi})
+        check(all(math.isfinite(v) for v in losses),
+              f"{arch} train: non-finite loss {losses}")
+        check(losses[1] < losses[0],
+              f"{arch} train: the loss did not fall on the same batch "
+              f"{losses}")
+        check(kept, f"{arch} train: a frozen parameter moved")
+        check(len(frozen) > 0, f"{arch} train: k = 1 of {cfg.num_layers} "
+              "layers froze nothing")
+        check(flash == 0, f"{arch} train launched flash {flash} times")
+        if arch == "gemma2-9b":
+            emit({"phase": "train_dryrun", "config": cfg.name,
+                  "layers": cfg.num_layers, "batch": [TRAIN_BATCH, seq],
+                  "microbatches": TRAIN_MICROBATCHES,
+                  "trace_s": rec["trace_s"], "memory": rec["memory"],
+                  "cost": rec["cost"], "roofline": rec["roofline"],
+                  "nvidia_smi": smi})
+
+
+def drive_train_phase(dev, smi: str) -> float:
+    """Phase 7: the dry-runs of the full-width settings start in worker
+    processes (xLSTM's, the longest, first), the SMOKE card-vs-CPU steps
+    and then the full-width steps run meanwhile -> the phase's seconds."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    order = sorted(TRAIN_DEPTH, key=lambda a: a != "xlstm-1.3b")
+    # the full-width steps fill 78-80 GB in blocks of many sizes (96- and
+    # 128-head scores beside the weights), where fixed segments leave
+    # gigabytes reserved but unusable (Mistral-Large at 2 layers: out of
+    # memory at 75.1 GB allocated, 5.7 GB more reserved); expandable
+    # segments (PYTORCH_CUDA_ALLOC_CONF's knob) map pages into one range
+    # instead. Switched on for this phase alone, so that the earlier
+    # phases run with the allocator a user gets.
+    torch.cuda.empty_cache()
+    torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
+    try:
+        with ProcessPoolExecutor(
+                max_workers=4,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            records = {arch: pool.submit(train_dryrun, arch)
+                       for arch in order}
+            drive_train_smoke(dev)
+            drive_train_full(dev, smi, records)
+    finally:
+        torch.cuda.empty_cache()
+        torch._C._accelerator_setAllocatorSettings("expandable_segments:False")
+    return time.perf_counter() - t0
+
+
 def full_width(dev):
     """The full-width char-LM's config (vocab widened to the corpus), FL
     config, corpus, model, and one delta-like tensor per parameter leaf
@@ -2104,6 +2427,7 @@ def main() -> int:
     serve_flash += drive_serving(dev, smi, **SERVE_ENCDEC)
     serve_flash += drive_serve_smoke(dev)
     serve_launches = {"flash_attention_bhsd": serve_flash}
+    emit({"phase": "train_total", "seconds": drive_train_phase(dev, smi)})
     for r in recs + [limbs_rec]:
         r["launches"] = (launches[r["name"]] + train_launches[r["name"]]
                          + det_launches[r["name"]]

@@ -40,6 +40,14 @@ Prints JSON lines:
   synchronize at each): eval, LocalTrain plus aggregation, accounting;
   the aggregator's ``submit`` / ``flush`` time is taken out of the
   middle part as ``aggregate_s``.
+- ``train_split``: one full-width train step (``make_train_step``) of
+  Gemma2-9B, Phi-3.5-MoE, RecurrentGemma-2B and SeamlessM4T at
+  ``chip_smoke.py``'s train setting (``train_setting``: depth cut to
+  fit, 2 x 4,096 tokens in 2 microbatches, AdamW, the mask at k = 1),
+  after one warm-up step: host-clock seconds of the step, and under the
+  profiler (one more step) its device time, busy share, device ops, the
+  shares of GEMMs, copies, reductions and elementwise kernels, and the
+  top kernels.
 - ``executor_round`` (last): one LocalTrain round of a full cohort (6
   clients) at the given knobs with each executor, ``sequential`` then
   ``batched`` (same-knob clients stacked under ``torch.func.vmap``):
@@ -65,9 +73,23 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from chip_smoke import (FLASH_TIMED, SUM_TIMED, check,  # noqa: E402
-                        device_kernels, emit, flash_bound_ms, flash_inputs,
-                        full_width, nvidia_smi_line, smi_clocks, time_ms)
+from chip_smoke import (FLASH_TIMED, SUM_TIMED, TRAIN_K,  # noqa: E402
+                        TRAIN_LR, TRAIN_MICROBATCHES, TRAIN_BATCH, check,
+                        device_kernels, device_split, emit, flash_bound_ms,
+                        flash_inputs, full_width, nvidia_smi_line,
+                        smi_clocks, time_ms, train_setting)
+
+#: the train steps ``train_split`` profiles: a dense stack with softcaps,
+#: MoE, the recurrent scan, the encoder-decoder
+TRAIN_PROFILED = ("gemma2-9b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-2b",
+                  "seamless-m4t-medium")
+#: kernel kinds of ``train_split``'s shares, by a name's first match
+#: (the rest: "other")
+TRAIN_KINDS = {"gemm": ("gemm", "nvjet", "cutlass", "xmma"),
+               "copy": ("Memcpy", "Memset", "copy_kernel"),
+               "reduce": ("reduce_kernel", "softmax", "Softmax"),
+               "elementwise": ("elementwise", "Functor"),
+               "other": ()}
 
 
 def kernel_device_us(fn, names, reps: int = 20, what: str = "") -> float:
@@ -345,6 +367,50 @@ def executor_rounds(model, fl, ds, params, kn, reps: int = 3) -> list:
     return rows
 
 
+def train_split(dev) -> list:
+    """``train_split`` rows (see the module docstring)."""
+    from repro_torch.core.freezing import mask_tree
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+
+    rows = []
+    for arch in TRAIN_PROFILED:
+        cfg, seq, published = train_setting(arch)
+        torch.cuda.empty_cache()
+        model = build(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            dev).params()
+        opt = adamw(TRAIN_LR)
+        state = opt.init(params)
+        mask = mask_tree(params, cfg, TRAIN_K)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 synthetic_batch(cfg, TRAIN_BATCH, seq, seed=7).items()}
+        step = make_train_step(model, opt, True, TRAIN_MICROBATCHES)
+        params, state, _ = step(params, state, batch, mask)      # warm-up
+        t0 = synced()
+        params, state, _ = step(params, state, batch, mask)
+        step_s = synced() - t0
+        split = device_split(lambda: step(params, state, batch, mask),
+                             top=1 << 20)[1]
+        kernels = split.pop("top_kernels")
+        shares = {kind: 0.0 for kind in TRAIN_KINDS}
+        for name, us in kernels:
+            kind = next((kind for kind, keys in TRAIN_KINDS.items()
+                         if any(key in name for key in keys)), "other")
+            shares[kind] += us / split["device_us"]
+        row = {"phase": "train_split", "config": cfg.name,
+               "layers": f"{cfg.num_layers} of {published}",
+               "batch": [TRAIN_BATCH, seq], "step_s": step_s,
+               "busy_share": split["device_us"] / 1e6 / step_s, **split,
+               "shares": shares, "top_kernels": kernels[:8]}
+        emit(row)
+        rows.append(row)
+        del params, state, batch, step
+    return rows
+
+
 def main(argv=None) -> int:
     from repro_torch.core import Knobs
     from repro_torch.device import resolve_device
@@ -373,6 +439,7 @@ def main(argv=None) -> int:
     emit(masked_fold(dev))
     emit({"phase": "flash", "times": flash_times(dev)})
     engine_rounds(dev, args.engine_rounds)
+    train_split(dev)
     # last: its sequential round traces ~89k kernels
     executor_rounds(model, fl, ds, params, kn)
     return 0

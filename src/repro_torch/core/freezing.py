@@ -5,8 +5,8 @@ Frozen layers carry no gradients, no optimizer movement, and are excluded
 from ``params_active``, which is what the paper's E/C/M proxies charge
 for. The mask maps each parameter name to a 0/1 f32 tensor shaped to
 broadcast against the leaf: a scalar for the io leaves and for each
-prefix layer's, and per unit along axis 0 (``(n_units, 1, ...)``) for
-the stacked unit leaves.
+prefix and suffix layer's (each freezes by its own layer index), and per
+unit along axis 0 (``(n_units, 1, ...)``) for the stacked unit leaves.
 """
 from __future__ import annotations
 
@@ -47,6 +47,9 @@ def mask_tree(params: Any, cfg: ModelConfig, k: int) -> Dict[str, torch.Tensor]:
             continue
         if path[:2] == ["stack", "prefix"]:
             trainable = int(path[2]) >= first_unfrozen
+        elif path[:2] == ["stack", "suffix"]:
+            trainable = (n_prefix + unit_len * n_units + int(path[2])
+                         >= first_unfrozen)
         else:
             trainable = (not (path[0] == "io" and path[1] in _IO_FREEZABLE)
                          or full)

@@ -3,7 +3,8 @@
 Every entry point takes ``device=None`` to mean ``"cuda"``. Without a
 CUDA device that raises: nothing moves to the CPU on its own, so a run
 that asked for the card never silently measures the host. Pass
-``device="cpu"`` to run on the CPU (the tests do).
+``device="cpu"`` to run on the CPU (the tests do). ``device="meta"``
+gives shapes and dtypes without storage (the dry-run's specs).
 """
 from __future__ import annotations
 
@@ -25,6 +26,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "CUDA is not available; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

@@ -1,23 +1,92 @@
-"""Serving step functions: prefill and decode.
+"""Step functions: train, prefill and decode.
 
-``make_prefill_step(model, shape)`` and ``make_decode_step(model)``
-return the functions a deployment calls, as the reference's
-``repro.launch.steps`` does (there they are what the dry-run lowers and
-pjits; here they run eagerly on the parameters' device). Prefill runs
-without a gradient, so its attention is the flash kernel on the card.
-``make_train_step`` is not ported yet: the federated client
-(``core.client``) is the port's training path.
+``make_train_step(model, optimizer, ...)``, ``make_prefill_step(model,
+shape)`` and ``make_decode_step(model)`` return the functions a
+deployment calls, as the reference's ``repro.launch.steps`` does (there
+they are what the dry-run lowers and pjits; here they run eagerly on the
+parameters' device). The train step takes its gradient through the
+reference's memory design (each stacked unit and each loss chunk
+recomputed in the backward pass), so its attention is the plain
+``blockwise_attention``; prefill runs without a gradient, so its
+attention is the flash kernel on the card.
 """
 from __future__ import annotations
 
+from typing import Dict, Optional
+
+import torch
+
 from repro_torch.configs.base import InputShape
+from repro_torch.models.convert import as_params
 from repro_torch.models.zoo import Model
+from repro_torch.optim import Optimizer
+
+Tensors = Dict[str, torch.Tensor]
 
 
-def make_train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "make_train_step is not ported yet (ROADMAP queue 1 item 13); the "
-        "federated client (repro_torch.core.client) trains the char-LM")
+def make_train_step(model: Model, optimizer: Optimizer,
+                    with_freezing_mask: bool = False, microbatches: int = 1):
+    """(params, opt_state, batch[, mask]) -> (params, opt_state, loss),
+    the reference's train step.
+
+    The loss and its gradient come from ``model.train_loss(..., remat=
+    True)``. ``microbatches > 1`` splits the batch along dim 0, sums the
+    slices' gradients and losses in fp32 and scales both by
+    1 / microbatches; with one microbatch the gradients reach the
+    optimizer in the parameters' dtype. A freezing mask
+    (``core.freezing.mask_tree``) multiplies the gradients, then the
+    updates, each cast to the tensor's dtype.
+
+    The step runs on the parameters' device and donates its inputs, as
+    the reference's dry-run jit does (``donate_argnums=(0, 1)``): the
+    optimizer's ``update_`` writes the new parameters and state into the
+    tensors it was given, which the step returns, a piece of a parameter
+    at a time, so that old and new state are never live together and
+    the update's fp32 temporaries stay small (16 B a parameter under
+    AdamW with an fp32 accumulator, not 24 plus several times the
+    largest leaf). Keep a copy of what the caller still needs."""
+
+    def grads_of(params: Tensors, batch):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        with torch.enable_grad():
+            loss, _ = model.train_loss(leaves, batch, remat=True)
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        materialize_grads=True)
+        return loss.detach(), dict(zip(leaves, grads))
+
+    def accumulate(params: Tensors, batch):
+        if microbatches == 1:
+            return grads_of(params, batch)
+        if any(v.shape[0] % microbatches for v in batch.values()):
+            raise ValueError(f"batch does not split into {microbatches} "
+                             "equal microbatches")
+        split = {k: torch.chunk(v, microbatches) for k, v in batch.items()}
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=next(iter(params.values())).device)
+        gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for k, p in params.items()}
+        for i in range(microbatches):
+            loss, grads = grads_of(params, {k: c[i] for k, c in split.items()})
+            loss_sum = loss_sum + loss
+            for k, g in grads.items():
+                gsum[k].add_(g)
+            del grads
+        scale = 1.0 / microbatches
+        for g in gsum.values():
+            g.mul_(scale)
+        return loss_sum * scale, gsum
+
+    @torch.no_grad()
+    def train_step(params, opt_state, batch, mask: Optional[Tensors] = None):
+        params = as_params(params)
+        loss, grads = accumulate(params, batch)
+        optimizer.update_(grads, opt_state, params, mask)
+        return params, opt_state, loss
+
+    if not with_freezing_mask:
+        return lambda p, o, b: train_step(p, o, b, None)
+    return train_step
 
 
 def make_prefill_step(model: Model, shape: InputShape,

@@ -24,6 +24,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
@@ -108,19 +109,28 @@ class EncDecModel(Z.Model):
                 "dec": T._stack_units(lambda u: _dec_layer_init(gen, cfg, dev),
                                       cfg.num_layers)}
 
-    def encode(self, p, src_embeds):
+    def encode(self, p, src_embeds, remat: bool = False):
         """The projected source frames through the encoder and its final
-        norm -> memory (B, S_src, d)."""
+        norm -> memory (B, S_src, d); under ``remat`` each layer is
+        recomputed in the backward pass (the reference's
+        ``jax.checkpoint``)."""
         cfg = self.cfg
         x = src_embeds.to(cfg.compute_dtype) @ p["io"]["frontend_proj"]
+
+        def layer(u, h):
+            return _enc_layer(T._unit_slice(p["enc"], u), h, cfg)
+
         for u in range(cfg.enc_layers):
-            x = _enc_layer(T._unit_slice(p["enc"], u), x, cfg)
+            x = (checkpoint(layer, u, x, use_reentrant=False) if remat
+                 else layer(u, x))
         return L.norm_apply(p["io"]["enc_norm"], x)
 
-    def _decode_full(self, p, memory, tokens, s_buf: Optional[int] = None):
+    def _decode_full(self, p, memory, tokens, s_buf: Optional[int] = None,
+                     remat: bool = False):
         """The decoder over the full target sequence -> (x after the final
         norm, the decode caches with ``s_buf`` self-attention slots, or
-        None without it)."""
+        None without it); under ``remat`` (no caches) each layer, its
+        cross K/V included, is recomputed in the backward pass."""
         cfg = self.cfg
         x = Z.embed_tokens(p["io"], tokens, cfg)
         b, s, _ = x.shape
@@ -131,29 +141,34 @@ class EncDecModel(Z.Model):
             lp = T._unit_slice(p["dec"], u)
             k_enc, v_enc = _cross_kv(lp, memory, cfg)
             x, (k, v) = _dec_layer_full(lp, x, positions, k_enc, v_enc, cfg)
-            if s_buf is None:
-                return None
             return {"self": L.attn_cache_from_full(k, v, s_buf),
                     "cross_k": k_enc, "cross_v": v_enc}
+
+        def layer(u, h):
+            lp = T._unit_slice(p["dec"], u)
+            return _dec_layer_full(lp, h, positions, *_cross_kv(lp, memory,
+                                                                cfg), cfg)[0]
 
         caches = None
         if s_buf is None:
             for u in range(cfg.num_layers):
-                run(u)
+                x = (checkpoint(layer, u, x, use_reentrant=False) if remat
+                     else layer(u, x))
         else:
             caches = T._stack_units(run, cfg.num_layers)
         return L.norm_apply(p["io"]["final_norm"], x), caches
 
-    def train_loss(self, params, batch):
+    def train_loss(self, params, batch, remat: bool = False):
         """-> (ce, {"ce", "aux": 0.0}): the mean cross-entropy over the
-        target tokens (under ``loss_mask`` when the batch has one)."""
+        target tokens (under ``loss_mask`` when the batch has one);
+        ``remat`` as ``Model.train_loss``."""
         cfg = self.cfg
         p = unflatten(as_params(params))
-        memory = self.encode(p, batch["src_embeds"])
-        x, _ = self._decode_full(p, memory, batch["tokens"])
+        memory = self.encode(p, batch["src_embeds"], remat)
+        x, _ = self._decode_full(p, memory, batch["tokens"], remat=remat)
         w = Z.unembed_matrix(p["io"], cfg).to(cfg.compute_dtype)
         ce = Z.ce_loss(x, w, batch["targets"], cfg.final_softcap,
-                       batch.get("loss_mask"))
+                       batch.get("loss_mask"), remat)
         return ce, {"ce": ce, "aux": 0.0}
 
     @torch.no_grad()

@@ -32,6 +32,8 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -273,7 +275,7 @@ def stack_init(gen, cfg: ModelConfig, device):
 
 def stack_apply_full(params, x, positions, cfg: ModelConfig,
                      cache_len: Optional[int] = None,
-                     use_decode_window: bool = False):
+                     use_decode_window: bool = False, remat: bool = False):
     """The prefix blocks, a loop over the stacked ``units`` axis, then the
     suffix blocks -> (x, caches or None, aux loss summed over the stack
     in that order). With ``cache_len`` (prefill), each attention block's
@@ -281,7 +283,12 @@ def stack_apply_full(params, x, positions, cfg: ModelConfig,
     ``cache_len`` slots (a local layer: its window; a global layer under
     ``use_decode_window``: the decode window), and each recurrent block
     keeps its final state; the units' caches are stacked like the
-    parameters as the units run."""
+    parameters as the units run. Under ``remat`` (a gradient, no caches)
+    each unit is recomputed in the backward pass instead of keeping its
+    activations, as the reference's ``jax.checkpoint`` of the scan body
+    does; the prefix and suffix blocks keep theirs, as there. The
+    recompute runs with the gradient on (``use_reentrant=False``), so it
+    takes the same attention route as the forward."""
     prefix, unit, n_units, suffix = stack_plan(cfg)
     aux_total = 0.0
 
@@ -309,10 +316,20 @@ def stack_apply_full(params, x, positions, cfg: ModelConfig,
             aux_total = aux_total + aux
         return caches
 
+    def unit_body(u, h, aux_acc):
+        unit_params = _unit_slice(params["units"], u)
+        for j, spec in enumerate(unit):
+            h, _, aux = block_apply_full(unit_params[f"b{j}"], h, positions,
+                                         cfg, spec)
+            aux_acc = aux_acc + aux
+        return h, aux_acc
+
     caches = {"prefix": run_list("prefix", prefix)}
     if cache_len is None:
         for u in range(n_units):
-            run(u)
+            x, aux_total = (checkpoint(unit_body, u, x, aux_total,
+                                       use_reentrant=False)
+                            if remat else unit_body(u, x, aux_total))
     elif n_units:
         caches["units"] = _stack_units(run, n_units)
     caches["suffix"] = run_list("suffix", suffix)

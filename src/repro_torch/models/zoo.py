@@ -7,7 +7,7 @@ encoder-decoder, ``models.encdec.EncDecModel``).
 ``build(cfg)`` returns a ``Model``:
 
     init(gen, device=None) -> ParamTree
-    train_loss(params, batch) -> (ce + aux, {"ce", "aux"})
+    train_loss(params, batch, remat=False) -> (ce + aux, {"ce", "aux"})
     prefill(params, batch, use_decode_window=False, max_new_tokens=0)
         -> (last_logits (B, 1, V) fp32, decode caches)
     decode_step(params, caches, tokens (B, 1)) -> (logits (B, 1, V), caches)
@@ -34,6 +34,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -43,27 +44,55 @@ from repro_torch.models.moe import moe_param_count
 from repro_torch.models.convert import ParamTree, as_params, flatten, unflatten
 
 
-def ce_loss(x, w_unembed, targets, softcap: Optional[float] = None,
-            mask=None):
-    """x: (B,S,D), w_unembed: (D,V), targets: (B,S) -> mean CE in fp32
-    (over softcapped logits when ``softcap`` is set), over the tokens
-    where ``mask`` (B,S) is set when it is given.
+def _ce_chunk_size(batch: int, vocab: int, seq: int) -> int:
+    """The reference's chunk of sequence positions: ~8 GiB of fp32 logits
+    at most, at least 16 positions, at most 1,024 and the sequence, and a
+    divisor of the sequence."""
+    budget = 2 ** 33
+    c = max(16, int(budget / max(1, batch * vocab * 4)))
+    c = min(c, seq, 1024)
+    while seq % c:
+        c -= 1
+    return max(c, 1)
 
-    The reference's ``chunked_ce_loss`` takes the same masked mean,
-    sum((lse - ll) * mask) / max(sum(mask), 1), over sequence chunks so
-    that no (B, S, V) logits tensor is live at once under XLA; the
-    chunks' partial sums add up to this sum (in another order). Without
-    a mask the mean is over every token: the reference's all-ones mask
-    gives the same sum and count exactly."""
-    logits = (x @ w_unembed).to(torch.float32)
+
+def _ce_chunk(xc, w_unembed, tc, mc, softcap):
+    """One chunk's (sum of (lse - ll) * mask, sum of mask) in fp32."""
+    logits = (xc @ w_unembed).to(torch.float32)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    ll = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
+    return torch.sum((lse - ll) * mc), torch.sum(mc)
+
+
+def ce_loss(x, w_unembed, targets, softcap: Optional[float] = None,
+            mask=None, remat: bool = False):
+    """x: (B,S,D), w_unembed: (D,V), targets: (B,S) -> mean CE in fp32
+    (over softcapped logits when ``softcap`` is set), over the tokens
+    where ``mask`` (B,S) is set (every token without one):
+    sum((lse - ll) * mask) / max(sum(mask), 1).
+
+    The reference's ``chunked_ce_loss``: the sequence runs in chunks of
+    ``_ce_chunk_size`` positions, their partial sums added in order, so
+    that no (B, S, V) logits tensor is live at once. Under ``remat`` each
+    chunk's logits are recomputed in the backward pass (the reference's
+    ``jax.checkpoint``) instead of kept for it."""
+    b, s, _ = x.shape
+    c = _ce_chunk_size(b, w_unembed.shape[1], s)
     if mask is None:
-        return torch.sum(lse - ll) / targets.numel()
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
     mask = mask.to(torch.float32)
-    return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, c):
+        args = (x[:, i:i + c], w_unembed, targets[:, i:i + c],
+                mask[:, i:i + c], softcap)
+        part, n = (checkpoint(_ce_chunk, *args, use_reentrant=False)
+                   if remat else _ce_chunk(*args))
+        tot, cnt = tot + part, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def io_init(gen, cfg: ModelConfig, device):
@@ -150,7 +179,7 @@ class Model:
         return ParamTree(flatten(self._init_tree(gen, resolve_device(device))))
 
     def _forward(self, params, batch, cache_extra: Optional[int] = None,
-                 use_decode_window: bool = False):
+                 use_decode_window: bool = False, remat: bool = False):
         """Embed (patch tokens first), run the stack and the final norm ->
         (param tree, x, caches with ``cache_extra`` slots past the
         context, or None without it, aux loss)."""
@@ -165,20 +194,26 @@ class Model:
         positions = torch.arange(s, device=x.device).expand(b, s)
         cache_len = None if cache_extra is None else s + cache_extra
         x, caches, aux = T.stack_apply_full(p["stack"], x, positions, cfg,
-                                            cache_len, use_decode_window)
+                                            cache_len, use_decode_window,
+                                            remat)
         return p, L.norm_apply(p["io"]["final_norm"], x), caches, aux
 
-    def train_loss(self, params, batch):
+    def train_loss(self, params, batch, remat: bool = False):
         """-> (ce + aux, {"ce", "aux"}): the mean cross-entropy over the
         text tokens (under ``loss_mask`` when the batch has one) and the
-        MoE load-balance loss summed over the layers (0.0 without MoE)."""
+        MoE load-balance loss summed over the layers (0.0 without MoE).
+        ``remat`` recomputes each stacked unit and each loss chunk in the
+        backward pass, as the reference's train loss always does
+        (``launch.steps.make_train_step`` asks for it; the federated
+        client, whose char-LM fits, does not): the same values with less
+        memory and more work."""
         cfg = self.cfg
-        p, x, _, aux = self._forward(params, batch)
+        p, x, _, aux = self._forward(params, batch, remat=remat)
         if cfg.frontend is not None:
             x = x[:, cfg.frontend.num_prefix_tokens:]
         w = unembed_matrix(p["io"], cfg).to(cfg.compute_dtype)
         ce = ce_loss(x, w, batch["targets"], cfg.final_softcap,
-                     batch.get("loss_mask"))
+                     batch.get("loss_mask"), remat)
         return (ce if cfg.moe is None else ce + aux), {"ce": ce, "aux": aux}
 
     @torch.no_grad()

@@ -2,7 +2,9 @@
 Adam and AdamW, each an ``(init, update)`` pair with
 ``update(grads, state, params) -> (updates, state)``, the convention of
 ``repro.optim.optimizers``; and its tree utilities ``apply_updates``,
-``global_norm`` and ``clip_by_global_norm``.
+``global_norm`` and ``clip_by_global_norm``. Each optimizer also has
+``update_``, the same step written into the parameters and state it is
+given (see ``Optimizer``).
 
 Not ``torch.optim``: that one applies weight decay to every parameter it
 holds (frozen leaves included) and orders the bias correction
@@ -16,16 +18,70 @@ new tensors and never reads a value back to the host, so it runs under
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
 Tensors = Dict[str, torch.Tensor]
 
+#: elements of one parameter piece per step of ``update_`` (its fp32
+#: temporaries then take ~2 GB, not several times the largest leaf)
+UPDATE_PIECE = 1 << 26
+
 
 class Optimizer(NamedTuple):
+    """``update`` builds new tensors. ``update_(grads, state, params,
+    mask=None)`` takes the same step in place, into ``params`` and
+    ``state``, a piece of a parameter (``UPDATE_PIECE`` elements along
+    dim 0) at a time, so that old and new state are never live together.
+    A mask (a 0/1 tensor per parameter, broadcast against its leading
+    dims) multiplies the gradients, then the updates, each cast to the
+    tensor's dtype. It empties ``grads`` as it goes, freeing each
+    gradient once its parameter is updated."""
     init: Callable
     update: Callable
+    update_: Callable
+
+
+def _in_place(piece_update: Callable, tick: Optional[Callable] = None
+              ) -> Callable:
+    """``Optimizer.update_`` from ``piece_update(state, name, rows, g, p)
+    -> update of rows ``rows`` of parameter ``name````, which writes
+    those rows of the state in place; ``tick(state)`` advances the
+    state's shared leaves once, before the pieces."""
+
+    @torch.no_grad()
+    def update_(grads: Tensors, state, params: Tensors,
+                mask: Optional[Tensors] = None):
+        if tick is not None:
+            tick(state)
+        for k in list(grads):
+            g_all, p_all = grads.pop(k), params[k]
+            m_all = None if mask is None else mask[k]
+            for rows in _pieces(p_all):
+                g, p = g_all[rows], p_all[rows]
+                m = m_all if m_all is None or m_all.ndim == 0 else m_all[rows]
+                if m is not None:
+                    g = g * m.to(g.dtype)
+                u = piece_update(state, k, rows, g, p)
+                if m is not None:
+                    u = u * m.to(u.dtype)
+                p.add_(u.to(p.dtype))
+            del g_all
+        return params, state
+
+    return update_
+
+
+def _pieces(t: torch.Tensor):
+    """Index ranges along dim 0 of at most ~``UPDATE_PIECE`` elements
+    (the whole tensor when it is 0-dim)."""
+    if t.ndim == 0:
+        yield ...
+        return
+    rows = max(1, UPDATE_PIECE // max(1, t[0].numel()))
+    for i in range(0, t.shape[0], rows):
+        yield slice(i, i + rows)
 
 
 def sgd(lr: float) -> Optimizer:
@@ -36,7 +92,10 @@ def sgd(lr: float) -> Optimizer:
     def update(grads: Tensors, state, params=None):
         return {k: -lr * g for k, g in grads.items()}, state
 
-    return Optimizer(init, update)
+    def piece(state, name, rows, g, p):
+        return -lr * g
+
+    return Optimizer(init, update, _in_place(piece))
 
 
 def momentum(lr: float, beta: float = 0.9) -> Optimizer:
@@ -44,13 +103,20 @@ def momentum(lr: float, beta: float = 0.9) -> Optimizer:
         return {k: torch.zeros_like(p, dtype=torch.float32)
                 for k, p in params.items()}
 
+    def advance(m, g):
+        return beta * m + g.to(torch.float32)
+
     @torch.no_grad()
     def update(grads: Tensors, state: Tensors, params=None):
-        new_m = {k: beta * state[k] + g.to(torch.float32)
-                 for k, g in grads.items()}
+        new_m = {k: advance(state[k], g) for k, g in grads.items()}
         return {k: -lr * m for k, m in new_m.items()}, new_m
 
-    return Optimizer(init, update)
+    def piece(state, name, rows, g, p):
+        m = state[name][rows]
+        m.copy_(advance(m, g))
+        return -lr * m
+
+    return Optimizer(init, update, _in_place(piece))
 
 
 class AdamState(NamedTuple):
@@ -71,30 +137,47 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                          nu={k: torch.zeros_like(z) for k, z in zeros.items()},
                          count=count)
 
+    def moments(mu, nu, g):
+        g = g.to(torch.float32)
+        return ((b1 * mu.to(torch.float32) + (1 - b1) * g).to(moment_dtype),
+                (b2 * nu.to(torch.float32) + (1 - b2) * torch.square(g)
+                 ).to(moment_dtype))
+
+    def corrections(count):
+        cf = count.to(torch.float32)
+        return 1 - b1 ** cf, 1 - b2 ** cf
+
+    def step_of(mu, nu, p, bc1, bc2):
+        m = mu.to(torch.float32)
+        v = nu.to(torch.float32)
+        step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        if weight_decay and p.ndim >= 2:   # decay matrices only
+            step = step + weight_decay * p.to(torch.float32)
+        return (-lr * step).to(p.dtype)
+
     @torch.no_grad()
     def update(grads: Tensors, state: AdamState, params: Tensors):
         count = state.count + 1
-        mu = {k: (b1 * state.mu[k].to(torch.float32)
-                  + (1 - b1) * g.to(torch.float32)).to(moment_dtype)
-              for k, g in grads.items()}
-        nu = {k: (b2 * state.nu[k].to(torch.float32)
-                  + (1 - b2) * torch.square(g.to(torch.float32))
-                  ).to(moment_dtype)
-              for k, g in grads.items()}
-        cf = count.to(torch.float32)
-        bc1 = 1 - b1 ** cf
-        bc2 = 1 - b2 ** cf
-        ups = {}
-        for k, p in params.items():
-            m = mu[k].to(torch.float32)
-            v = nu[k].to(torch.float32)
-            step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            if weight_decay and p.ndim >= 2:   # decay matrices only
-                step = step + weight_decay * p.to(torch.float32)
-            ups[k] = (-lr * step).to(p.dtype)
+        new = {k: moments(state.mu[k], state.nu[k], g)
+               for k, g in grads.items()}
+        mu = {k: m for k, (m, _) in new.items()}
+        nu = {k: v for k, (_, v) in new.items()}
+        bc1, bc2 = corrections(count)
+        ups = {k: step_of(mu[k], nu[k], p, bc1, bc2)
+               for k, p in params.items()}
         return ups, AdamState(mu=mu, nu=nu, count=count)
 
-    return Optimizer(init, update)
+    def tick(state: AdamState):
+        state.count.add_(1)
+
+    def piece(state: AdamState, name, rows, g, p):
+        mu, nu = state.mu[name][rows], state.nu[name][rows]
+        m, v = moments(mu, nu, g)
+        mu.copy_(m)
+        nu.copy_(v)
+        return step_of(m, v, p, *corrections(state.count))
+
+    return Optimizer(init, update, _in_place(piece, tick))
 
 
 def adam(lr: float, **kw) -> Optimizer:

@@ -129,6 +129,38 @@ def test_optimizers_run_under_vmap():
                                            atol=0)
 
 
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+@pytest.mark.parametrize("name", ["sgd", "momentum", "adam", "adamw_bf16"])
+def test_in_place_update_matches_update(name, masked, monkeypatch):
+    """``update_`` (the train step's in-place update, a piece of a
+    parameter at a time; pieces of 4 elements here, so every leaf but
+    the 0-dim one is cut) takes ``update``'s step bit for bit over 3
+    steps, the mask applied to gradients and then to updates."""
+    monkeypatch.setattr(topt, "UPDATE_PIECE", 4)
+    opt = topt.make_optimizer(name, 1e-2, weight_decay=0.01)
+    params = {**_t(_tree(0)), "s": torch.tensor(0.5)}
+    mask = {"a.w": torch.tensor(1.0), "a.b": torch.tensor(0.0),
+            "stack.u": torch.tensor([0.0, 1.0])[:, None, None],
+            "s": torch.tensor(1.0)} if masked else None
+    want_p, got_p = dict(params), {k: v.clone() for k, v in params.items()}
+    want_s, got_s = opt.init(want_p), opt.init(got_p)
+    for step in range(3):
+        grads = {**_t(_tree(10 + step)), "s": torch.tensor(0.1 * step - 0.1)}
+        g = grads if mask is None else {k: v * mask[k] for k, v in
+                                        grads.items()}
+        ups, want_s = opt.update(g, want_s, want_p)
+        if mask is not None:
+            ups = {k: u * mask[k] for k, u in ups.items()}
+        want_p = topt.apply_updates(want_p, ups)
+        got_p, got_s = opt.update_(dict(grads), got_s, got_p, mask)
+    for k in params:
+        torch.testing.assert_close(got_p[k], want_p[k], rtol=0, atol=0)
+    _close(_leaves(got_s), _leaves(want_s), 0.0)
+    if masked:
+        torch.testing.assert_close(got_p["a.b"], params["a.b"], rtol=0,
+                                   atol=0)
+
+
 @pytest.mark.parametrize("method,fl_over", [
     ("fedadam", {}), ("fedavgm", {}), ("cafl+adam", {}),
     ("fedavg_weighted+momentum", {}), ("cafl", dict(server_opt="momentum")),

@@ -14,6 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLES = ("quickstart", "federated_train", "heterogeneous_fleet",
+            "unreliable_fleet", "async_fleet", "constraint_controllers",
+            "constraint_sweep", "serve")
 SRC = os.path.join(REPO, "src")
 
 
@@ -34,7 +37,9 @@ def test_port_imports_no_jax_and_no_reference():
     for sub in ("fl.engine", "constraints.knobs", "checkpointing.checkpoint",
                 "launch.train", "models.rglru", "models.ssm",
                 "models.encdec", "configs.recurrentgemma_2b",
-                "configs.xlstm_1_3b", "configs.seamless_m4t_medium"):
+                "configs.xlstm_1_3b", "configs.seamless_m4t_medium",
+                "launch.specs", "launch.mesh", "launch.dryrun",
+                *(f"examples.{name}" for name in EXAMPLES)):
         assert f"repro_torch.{sub}" in names
     code = (
         "import importlib, sys\n"
@@ -85,6 +90,12 @@ def test_entry_points_default_to_the_card_and_raise_without_one(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--rounds", "1", "--quiet",
                     "--out", str(tmp_path / "fl")])
+    # the examples, before any work
+    import importlib
+    for name in EXAMPLES:
+        example = importlib.import_module(f"repro_torch.examples.{name}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            example.main([])
     # an explicit CPU request runs
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     assert next(iter(params.params().values())).device.type == "cpu"

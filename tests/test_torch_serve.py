@@ -263,8 +263,20 @@ def test_charlm_eval_takes_the_flash_route_and_matches_jax(monkeypatch):
 
 
 def test_serving_entry_points():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-        steps.make_train_step(None, None)
+    """The train step is ported: it runs (one AdamW step of Gemma2's
+    SMOKE model on the CPU) and moves the parameters."""
+    from repro_torch.optim import adamw
+    model = build(SMOKE)
+    params = model.init(torch.Generator().manual_seed(0), "cpu").params()
+    before = {k: v.clone() for k, v in params.items()}
+    opt = adamw(1e-3)
+    toks = torch.randint(0, SMOKE.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(1))
+    params, _, loss = steps.make_train_step(model, opt)(
+        params, opt.init(params), {"tokens": toks[:, :-1],
+                                   "targets": toks[:, 1:]})
+    assert torch.isfinite(loss)
+    assert any(not torch.equal(params[k], v) for k, v in before.items())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             build(SMOKE).init_cache(1, 8)

@@ -12,6 +12,11 @@ JAX, so that it runs where the port does.
   layer in prefill (SeamlessM4T: its encoder layers and the decoder's
   self- and cross-attention) and, in SeamlessM4T's decode, once per
   decoder layer (the cross-attention at Sq 1).
+- The train step (``launch.steps.make_train_step``, AdamW, 2
+  microbatches, the freezing mask at k = 1) of the char-LM and every zoo
+  config at SMOKE size (f32) on the card: the flash kernel is never
+  launched under the gradient (forward and recompute alike), and the
+  loss equals the CPU's within 1e-4 relative.
 - MLA at DeepSeek-V3's head widths (q/k 128 + 64 = 192, v 128, padded
   to 192 for the kernel) in bf16 on the card, the flash kernel's
   ``mma_bf16`` variant, against the same layer in f32 on the CPU:
@@ -23,12 +28,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import MLAConfig, get_smoke_config  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, MLAConfig,  # noqa: E402
+                                 get_smoke_config)
+from repro_torch.core.freezing import mask_tree  # noqa: E402
 from repro_torch.data import synthetic_batch  # noqa: E402
 from repro_torch.kernels import cuda_lib, ops  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.convert import flatten, unflatten  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 
 NEW = ["qwen2-72b", "mistral-large-123b", "minitron-8b", "paligemma-3b",
        "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"]
@@ -113,6 +122,27 @@ def test_recurrent_smoke_card_matches_cpu(card, arch):
         4 * cfg.num_layers if cfg.encdec else 0)
     for name, w in flatten(want_cache).items():
         assert_within(name, flatten(got_cache)[name], w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["charlm-shakespeare", *ARCH_IDS])
+def test_train_step_on_the_card_launches_no_flash(card, arch):
+    cfg = get_smoke_config(arch)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(4), "cpu").params()
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic_batch(cfg, 2, 64, seed=4).items()}
+    losses = {}
+    for dev in ("cpu", card):
+        p = {k: v.clone().to(dev) for k, v in params.items()}
+        opt = adamw(1e-4)
+        step = make_train_step(model, opt, True, 2)
+        before = ops.LAUNCHES["flash_attention_bhsd"]
+        _, _, loss = step(p, opt.init(p), to(batch, dev),
+                          mask_tree(p, cfg, 1))
+        assert ops.LAUNCHES["flash_attention_bhsd"] == before
+        losses[str(dev)] = float(loss)
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=RTOL)
 
 
 @pytest.mark.cuda
