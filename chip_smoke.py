@@ -78,7 +78,12 @@ before the final line:
    with the sync and with the masked aggregator, both under
    ``torch.use_deterministic_algorithms(True)``, held to each other at
    the reference's tolerances (and the sync one set beside
-   ``train.main``'s default-mode CAFL-L run).
+   ``train.main``'s default-mode CAFL-L run). The masked run carries the
+   runtime sanitizers (``repro_torch.analysis.runtime``):
+   ``SyncGuardCallback`` records each synchronising CUDA call of rounds 2
+   and 3 by call site (a ``sync_round`` line per round; a site outside
+   ``EXPLICIT_READS`` fails) and ``RecompileWatchCallback`` counts kernel
+   library builds and loads and compiles per round (none after round 1).
    The char-LM eval of every round now runs through the flash kernel;
    the engine lines count its launches.
 5. fleet: the engine's other pieces at the full-width char-LM (16
@@ -97,7 +102,17 @@ before the final line:
    policy, ``paper+wire_mb+latency``, resource-aware sampling,
    Bernoulli churn, deadline stragglers and ``wire_topk = 64``: one
    top-k launch per compressed delta, every one on the warp kernel.
-6. serve: Gemma2-9B at full width and depth (42 layers, d 3584, vocab
+6. analysis: the schedule gate (``repro_torch.analysis.sched``) on the
+   card: its three scenarios (``sync_ties``, ``masked_shuffle``,
+   ``fedbuff_wall``) with the char-LM at full width and depth (1,900,800
+   parameters) in the gate's own federated setting (``SCHED_SETTING``),
+   4, 4 and 8 adversarial tie permutations as in the reference, under
+   deterministic algorithms. Each scenario must be ok (every replay
+   bit-identical to the production schedule), with 0 races, something
+   swapped and no problem; ``masked_shuffle`` must fold through
+   ``masked_sum_u64`` in every replay, and every round whose knobs have
+   q >= 1 must launch the wire kernels. One ``sched`` line per scenario.
+7. serve: Gemma2-9B at full width and depth (42 layers, d 3584, vocab
    256,000, bf16; weights drawn on the card from
    ``torch.Generator(device="cuda").manual_seed(0)``) through
    ``launch.steps.make_prefill_step`` on one 8,192-token prompt (longer
@@ -140,7 +155,7 @@ before the final line:
    Mistral-Large, Minitron, PaliGemma, Phi-3.5-MoE, DeepSeek-V3,
    RecurrentGemma, xLSTM, SeamlessM4T) at its SMOKE size, f32, prefill
    on the card against the CPU from the same weights, within 1e-4.
-7. train: ``launch.steps.make_train_step`` (the reference's train step,
+8. train: ``launch.steps.make_train_step`` (the reference's train step,
    each stacked unit and loss chunk recomputed in the backward pass).
    First the char-LM and each zoo config at SMOKE size, f32: 2 AdamW
    steps (2 microbatches) on the card under deterministic algorithms and
@@ -158,15 +173,16 @@ before the final line:
    port's dry-run estimate of the same setting (``launch.dryrun``, run in
    worker processes meanwhile), MFU against 989 TFLOP/s; Gemma2's line
    is followed by its dry-run record's roofline.
-8. a ``kernel_off_path`` line for the limb entry of the masked sum (all
+9. a ``kernel_off_path`` line for the limb entry of the masked sum (all
    the summary's keys; no main path runs it, so its launches must be 0),
    the ``{"kernels": [...]}`` summary of the main paths' kernels, the
    nvidia-smi line, and the final ``{"ok": true, ...}`` line.
 
-Each path of phases 3 to 7 (each engine run, each timed prefill, each
-train step) runs with the launch counters zeroed just before it and read
-just after; phases 3 to 6 fail if a kernel of their path was never
-launched, phase 7 if the flash kernel was launched under a gradient.
+Each path of phases 3 to 8 (each engine run, each gate scenario, each
+timed prefill, each train step) runs with the launch counters zeroed just
+before it and read just after; phases 3 to 7 fail if a kernel of their
+path was never launched, phase 8 if the flash kernel was launched under a
+gradient.
 
 Where the time goes under torch.profiler is ``scripts/profile_port.py``'s
 work, not this script's.
@@ -212,6 +228,14 @@ MASKED_VAL_ATOL = 2e-3
 FLEET_ROUNDS = 2
 ASYNC_ROUNDS = 3
 BATCHED_ATOL = 2e-3
+#: the analysis phase: the schedule gate's permutations per scenario (the
+#: reference's), run in the gate's own federated setting
+SCHED_PERMUTATIONS = {"sync_ties": 4, "masked_shuffle": 4, "fedbuff_wall": 8}
+SCHED_SETTING = ("the gate's scenarios as defined (3 rounds; 6 clients, 3 "
+                 "a round, FedBuff over all 6; s_base 3, b_base 8, seq 16, "
+                 "eval 1 x 8), the model at full width and depth: the "
+                 "paper's 16-client fleet splits into tie groups of 5, 5 "
+                 "and 6, which FedBuff's fills of 2 cannot align with")
 #: the masked-sum cases: clients x columns (1,900,800 = the full-width
 #: char-LM's parameter count, one round's fold)
 SUM_COHORTS = (1, 2, 6, 17)
@@ -1368,6 +1392,8 @@ def drive_masked(dev, default_cafl):
     CAFL-L history of ``drive_train``, default mode, same seed) is set
     beside the deterministic sync run: participants and knobs must be
     equal, and the loss gaps are the card's nondeterminism, reported."""
+    from repro_torch.analysis.runtime import (RecompileWatchCallback,
+                                              SyncGuardCallback)
     from repro_torch.configs import get_config, get_fl_config
     from repro_torch.data import load_corpus
     from repro_torch.fl import FederatedEngine
@@ -1379,14 +1405,20 @@ def drive_masked(dev, default_cafl):
     if cfg.vocab_size < ds.vocab_size:
         cfg = cfg.replace(vocab_size=ds.vocab_size)
     fl = get_fl_config().replace(rounds=ENGINE_ROUNDS)
+    guard, watch = SyncGuardCallback(from_round=2), RecompileWatchCallback()
     with deterministic():
         runs, launches = {}, {}
         for aggregator in ("sync", "masked"):
-            engine = FederatedEngine(build(cfg), fl, ds, strategy="cafl",
-                                     aggregator=aggregator, device=dev)
+            engine = FederatedEngine(
+                build(cfg), fl, ds, strategy="cafl", aggregator=aggregator,
+                callbacks=[guard, watch] if aggregator == "masked" else [],
+                device=dev)
             ops.reset_launches()
             t0 = time.perf_counter()
-            runs[aggregator] = engine.run().history
+            try:
+                runs[aggregator] = engine.run().history
+            finally:
+                guard.close()
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches[aggregator] = dict(ops.LAUNCHES)
@@ -1434,8 +1466,35 @@ def drive_masked(dev, default_cafl):
                                     for a, b in zip(default_cafl, sync)),
           "max_val_loss_gap": max(abs(a.val_loss - b.val_loss)
                                   for a, b in zip(default_cafl, sync))})
+    check_sanitizers(guard, watch)
     return {k: launches["sync"][k] + launches["masked"][k]
             for k in launches["sync"]}
+
+
+def check_sanitizers(guard, watch) -> None:
+    """The runtime sanitizers of the masked CAFL-L run: each steady-state
+    round's synchronising CUDA calls by call site (none outside
+    ``EXPLICIT_READS``, and some recorded: the round reads each client's
+    loss), and no kernel-library build or load, or compile, after
+    round 1."""
+    from repro_torch.analysis.runtime import EXPLICIT_READS
+
+    check(guard.guarded_rounds == list(range(2, ENGINE_ROUNDS + 1)),
+          f"the sync guard covered rounds {guard.guarded_rounds}")
+    for rnd in guard.guarded_rounds:
+        sites = guard.per_round.get(rnd, {})
+        emit({"phase": "sync_round", "aggregator": "masked", "round": rnd,
+              "syncs": sum(sites.values()), "sites": dict(sorted(
+                  sites.items(), key=lambda kv: -kv[1]))})
+        check(sites, f"round {rnd}: the sync guard recorded no sync at all")
+    faults = guard.faults()
+    check(not faults, f"steady-state syncs outside EXPLICIT_READS: {faults}")
+    emit({"phase": "sanitizers", "aggregator": "masked",
+          "explicit_reads": sorted(EXPLICIT_READS),
+          "builds_per_round": watch.per_round})
+    check(watch.steady_state_compiles(2) == 0,
+          f"the kernel library was built or loaded, or something compiled, "
+          f"after round 1: {watch.per_round}")
 
 
 # ---------------------------------------------------------------------------
@@ -1692,7 +1751,117 @@ def drive_fleet(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: Gemma2-9B prefill and decode through the serving steps
+# phase 6: analysis: the schedule gate on the card
+# ---------------------------------------------------------------------------
+
+
+def launch_log():
+    """A round callback keeping the growth of ``ops.LAUNCHES`` over each
+    engine run (``runs``) and each of its rounds (``rounds``: per run,
+    (round, knobs, participants, launches))."""
+    from repro_torch.fl.callbacks import RoundCallback
+    from repro_torch.kernels import ops
+
+    def grown(since):
+        return {k: v - since[k] for k, v in ops.LAUNCHES.items()}
+
+    class LaunchLog(RoundCallback):
+        def __init__(self):
+            self.runs, self.rounds = [], []
+
+        def on_train_start(self, engine):
+            self._run0 = dict(ops.LAUNCHES)
+            self.rounds.append([])
+
+        def on_round_start(self, engine, rnd):
+            self._round0 = dict(ops.LAUNCHES)
+
+        def on_round_end(self, engine, record):
+            self.rounds[-1].append((record.round, dict(record.knobs),
+                                    list(record.participants),
+                                    grown(self._round0)))
+
+        def on_train_end(self, engine, result):
+            self.runs.append(grown(self._run0))
+
+    return LaunchLog()
+
+
+def drive_sched(dev) -> dict:
+    """The schedule gate's three scenarios (``analysis.sched.gate``) on
+    the card with the char-LM at full width and depth, under
+    deterministic algorithms, with the reference's permutation counts;
+    the launch counts zeroed before each scenario and read after -> the
+    summed launches."""
+    from repro_torch.analysis.sched.gate import full_width_stack, run_scenario
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    model, fl, ds = full_width_stack()
+    total: dict = {}
+    with deterministic():
+        for name, perms in SCHED_PERMUTATIONS.items():
+            log = launch_log()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            row, findings, problems = run_scenario(
+                name, model, fl, ds, permutations=perms, device=dev,
+                callbacks=[log])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            q_rounds = [(rnd, counts) for run in log.rounds
+                        for rnd, knobs, _, counts in run
+                        if knobs.get("q", 0) >= 1]
+            emit({"phase": "sched", "scenario": name,
+                  "aggregator": row["aggregator"],
+                  "commutativity": row["commutativity"], "mode": row["mode"],
+                  "permutations": row["permutations"],
+                  "swapped": row["swapped"],
+                  "total_swapped": row["total_swapped"],
+                  "unordered_pairs": row["unordered_pairs"],
+                  "races": row["races"],
+                  "races_certified": row["races_certified"],
+                  "replays": len(log.runs), "q_rounds": len(q_rounds),
+                  "launches": launches, "seconds": seconds,
+                  "problems": problems[:4]})
+            check(not problems and not findings,
+                  f"{name}: {len(problems)} problem(s), {len(findings)} "
+                  f"race finding(s): {problems[:4]}")
+            check(row["ok"] and row["races"] == 0
+                  and row["total_swapped"] > 0,
+                  f"{name}: ok={row['ok']} races={row['races']} "
+                  f"swapped={row['total_swapped']}")
+            check(len(log.runs) == perms + 2,
+                  f"{name}: {len(log.runs)} replays for {perms} "
+                  f"permutations (expected the base twice and each one)")
+            check(launches["flash_attention_bhsd"] > 0,
+                  f"{name}: the eval launched no flash kernel")
+            for rnd, counts in q_rounds:
+                check(counts["quantize_blocks"] > 0
+                      and counts["dequantize_blocks"] > 0,
+                      f"{name} round {rnd}: q >= 1 but the wire kernels "
+                      f"were not launched: {counts}")
+            if row["aggregator"] == "masked":
+                for i, run in enumerate(log.runs):
+                    folds = sum(1 for _, _, who, _ in log.rounds[i] if who)
+                    check(run["masked_sum_u64"] == folds > 0
+                          and run["masked_sum_limbs"] == 0,
+                          f"{name} replay {i}: {run['masked_sum_u64']} "
+                          f"masked_sum_u64 launches for {folds} rounds with "
+                          f"reporters")
+            else:
+                check(q_rounds, f"{name}: no round compressed (q >= 1), so "
+                      f"the wire kernels were never checked")
+            total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    emit({"phase": "analysis", "config": model.cfg.name,
+          "params": model.param_count()["total"],
+          "setting": SCHED_SETTING, "seconds": time.perf_counter() - t_phase})
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Gemma2-9B prefill and decode through the serving steps
 # ---------------------------------------------------------------------------
 
 
@@ -2091,7 +2260,7 @@ def drive_serve_smoke(dev) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the train step (launch.steps.make_train_step)
+# phase 8: the train step (launch.steps.make_train_step)
 # ---------------------------------------------------------------------------
 
 
@@ -2301,7 +2470,7 @@ def drive_train_full(dev, smi: str, records) -> None:
 
 
 def drive_train_phase(dev, smi: str) -> float:
-    """Phase 7: the dry-runs of the full-width settings start in worker
+    """Phase 8: the dry-runs of the full-width settings start in worker
     processes (xLSTM's, the longest, first), the SMOKE card-vs-CPU steps
     and then the full-width steps run meanwhile -> the phase's seconds."""
     import multiprocessing
@@ -2419,6 +2588,7 @@ def main() -> int:
         shutil.rmtree(out_dir, ignore_errors=True)
     det_launches = drive_masked(dev, default_cafl)
     fleet_launches = drive_fleet(dev)
+    sched_launches = drive_sched(dev)
     serve_flash = drive_serving(dev, smi)
     serve_flash += drive_serving(dev, smi, **SERVE_MOE)
     serve_flash += drive_serving(dev, smi, **SERVE_MLA)
@@ -2432,6 +2602,7 @@ def main() -> int:
         r["launches"] = (launches[r["name"]] + train_launches[r["name"]]
                          + det_launches[r["name"]]
                          + fleet_launches[r["name"]]
+                         + sched_launches[r["name"]]
                          + serve_launches.get(r["name"], 0))
         r["max_abs_err"] = worst[r["name"]]
     for r in recs:

@@ -1,0 +1,9 @@
+"""Entry point: ``python -m repro_torch.analysis``."""
+from __future__ import annotations
+
+import sys
+
+from repro_torch.analysis.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

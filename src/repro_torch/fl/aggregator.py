@@ -16,7 +16,19 @@ barrier, ``finalize`` at run end). The policies, as in the reference:
 
 Every policy folds its buffered reports in canonical report order
 (``(round_trained, arrival_time, client_id)``), so the applied update is
-a function of the report set, never of delivery order. A discount is
+a function of the report set, never of delivery order. Each class
+declares how through ``commutativity``, the certificate
+``repro_torch.analysis.sched`` checks (as the reference's):
+
+    "exact"      order-free by construction (the uint64 masked sum is
+                 associative and commutative mod 2^64)
+    "canonical"  floats folded in canonical order (sync, staleness)
+    "tiebreak"   the buffer's composition depends on delivery order
+                 (FedBuff fills every K arrivals), which the engine makes
+                 deterministic through ``TimedReport.sort_key``; each
+                 fill folds in canonical order
+
+A discount is
 applied on the deltas' device, as a 0-d fp32 tensor (the reference's
 weak-typed scalar).
 """
@@ -158,11 +170,14 @@ class Aggregator:
     deliver their reports when their simulated clock lands;
     ``applies_mid_round`` marks a policy whose ``submit`` can emit an
     update before the barrier (in wall-clock mode that update ends the
-    round)."""
+    round). ``commutativity`` is the policy's certificate under
+    report-order permutation (the module docstring); a policy that
+    declares none is flagged as a schedule race."""
 
     name = "base"
     accepts_late = False
     applies_mid_round = False
+    commutativity: Optional[str] = None
 
     def __init__(self):
         self._combine: Optional[Combine] = None
@@ -204,6 +219,7 @@ class SyncAggregator(Aggregator):
     apply one combined update at ``flush``. The default."""
 
     name = "sync"
+    commutativity = "canonical"
 
     def __init__(self):
         super().__init__()
@@ -239,6 +255,7 @@ class StalenessWeightedAggregator(Aggregator):
     combines)."""
 
     name = "staleness"
+    commutativity = "canonical"
     accepts_late = True
 
     def __init__(self, policy: Optional[StalenessPolicy] = None,
@@ -288,6 +305,7 @@ class FedBuffAggregator(Aggregator):
     applied, so a report that waited in it keeps ageing."""
 
     name = "fedbuff"
+    commutativity = "tiebreak"
     accepts_late = True
     applies_mid_round = True
 
@@ -356,6 +374,7 @@ class MaskedSumAggregator(Aggregator):
     """
 
     name = "masked"
+    commutativity = "exact"
 
     def __init__(self, scale_bits: int = 32, use_weights: bool = False,
                  seed: int = 0):

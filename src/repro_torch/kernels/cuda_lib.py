@@ -13,7 +13,8 @@ one where it launches its kernel and nowhere else, so a run can show
 that it went through the kernels; ``FLASH_VARIANTS`` splits the flash
 kernel's count by variant, ``TOPK_VARIANTS`` the top-k kernel's (one
 warp per block, or one CTA per row); ``reset_launches`` zeroes the
-counts.
+counts. ``LIBRARY_EVENTS`` counts this process's builds and loads of the
+library (``analysis.runtime.RecompileWatcher`` reads them).
 
 ``launch_on`` is the wrappers' one way in: it calls a C entry point on
 the current stream of the tensors' card, entering that card's context
@@ -54,6 +55,8 @@ FLASH_VARIANTS: Dict[str, int] = {"mma_bf16": 0, "rows_f32": 0,
                                   "tiled_f32": 0}
 #: the top-k kernel's launches by kernel (``wire.quantize_topk_blocks``)
 TOPK_VARIANTS: Dict[str, int] = {"warp": 0, "cta": 0}
+#: builds (``_build``) and loads (``load_library``) of the kernel library
+LIBRARY_EVENTS: Dict[str, int] = {"builds": 0, "loads": 0}
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -117,6 +120,7 @@ def _run(cmd) -> str:
 
 
 def _build(out: str) -> None:
+    LIBRARY_EVENTS["builds"] += 1
     os.makedirs(os.path.dirname(out), exist_ok=True)
     nvcc = _nvcc()
     # every name is temporary and renamed at the end, so a concurrent or
@@ -182,6 +186,7 @@ def load_library() -> ctypes.CDLL:
     if not os.path.exists(out):
         _build(out)
     lib = ctypes.CDLL(out)
+    LIBRARY_EVENTS["loads"] += 1
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

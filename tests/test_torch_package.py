@@ -39,6 +39,9 @@ def test_port_imports_no_jax_and_no_reference():
                 "models.encdec", "configs.recurrentgemma_2b",
                 "configs.xlstm_1_3b", "configs.seamless_m4t_medium",
                 "launch.specs", "launch.mesh", "launch.dryrun",
+                "analysis.engine", "analysis.rules_torch",
+                "analysis.sched.permute", "analysis.sched.gate",
+                "analysis.runtime", "analysis.cli",
                 *(f"examples.{name}" for name in EXAMPLES)):
         assert f"repro_torch.{sub}" in names
     code = (
