@@ -112,6 +112,21 @@ before the final line:
    swapped and no problem; ``masked_shuffle`` must fold through
    ``masked_sum_u64`` in every replay, and every round whose knobs have
    q >= 1 must launch the wire kernels. One ``sched`` line per scenario.
+   Then the trace analysis (``repro_torch.analysis.trace``, ``drive_trace``):
+   the static trace of the 11 registered entries (``trace`` and
+   ``trace_gate`` lines), which must equal ``TRACE_BUDGETS_TORCH.json``
+   row for row with 0 findings and no problem; each entry run once on
+   the card at its declared shape (``trace_run``): finite outputs, its
+   static peak (each storage rounded to the allocator's 512-byte block)
+   over ``MemTracker``'s peak within the reference's band [0.5, 4.0],
+   the wire tuples and the fold equal to the CPU twins' bit for bit,
+   ``quantize_blocks``, ``quantize_topk_blocks`` and ``masked_sum_u64``
+   launched, ``masked_sum_limbs`` not; then the client's local step at
+   the char-LM's full width at b 8 and 32 (``trace_full``): static peak
+   over ``max_memory_allocated`` (arguments + outputs + temporaries,
+   after a warm-up run) within the band, and the gate's memory units
+   from the static and from the measured peaks side by side
+   (``trace_full_gate``; a differing verdict is printed, not failed).
 7. serve: Gemma2-9B at full width and depth (42 layers, d 3584, vocab
    256,000, bf16; weights drawn on the card from
    ``torch.Generator(device="cuda").manual_seed(0)``) through
@@ -194,6 +209,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1860,6 +1876,198 @@ def drive_sched(dev) -> dict:
     return total
 
 
+#: the char-LM's full width (``configs/charlm_shakespeare.py``: 6 layers,
+#: d 192, 8 heads of 24, d_ff 384, vocab 128, seq 32; 1,900,800
+#: parameters), for the trace phase's memory check
+TRACE_FULL_WIDTH = {"vocab": 128, "num_layers": 6, "d_model": 192,
+                    "num_heads": 8, "head_dim": 24, "d_ff": 384,
+                    "seq_len": 32}
+#: the reference's band of the static peak over a measured one
+#: (``tests/test_analysis_trace.py``)
+TRACE_BRACKET = (0.5, 4.0)
+#: the CUDA caching allocator's block: every allocation takes a multiple
+#: of 512 bytes, so the estimate set beside a card's peak rounds each
+#: storage up to it (the dual update's 16-byte tensors take 512 each)
+CUDA_BLOCK = 512
+
+
+def to_card(tree, dev):
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor)
+                    else t, tree)
+
+
+def all_finite(tree) -> bool:
+    from torch.utils._pytree import tree_leaves
+    return all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor) and t.is_floating_point())
+
+
+def tracked_peak(fn, args):
+    """``fn(*args)`` under ``MemTracker``: (its outputs, the peak of the
+    live tensors' memory, the arguments included; on the card each
+    storage counts its allocator blocks)."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils._pytree import tree_leaves
+    tracker = MemTracker()
+    tracker.track_external(*[t for t in tree_leaves(args)
+                             if isinstance(t, torch.Tensor)])
+    with tracker:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    peak = max(snap["Total"] for snap in
+               tracker.get_tracker_snapshot("peak").values())
+    return out, peak
+
+
+def allocator_peak(fn, args, dev):
+    """``args`` moved to the card, then ``fn`` after
+    ``reset_peak_memory_stats``: (its outputs, ``max_memory_allocated``
+    above what was allocated before the arguments), i.e. arguments +
+    outputs + temporaries, as the reference counts XLA's memory
+    analysis."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = to_card(args, dev)
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def drive_trace(dev) -> dict:
+    """The trace analysis (``repro_torch.analysis.trace``) on the card:
+    the static trace, equal row for row to the committed
+    ``TRACE_BUDGETS_TORCH.json``; each of the 11 entries run for real at
+    its declared shape, its static peak (in allocator blocks) held to
+    the tracked peak of the run, the wire kernels and the fold launched
+    and their outputs equal to the CPU twins'; then the local step at
+    the char-LM's full width at b 8 and 32, static peak against
+    ``max_memory_allocated``, and the gate's units from both -> the
+    entries' launches."""
+    from repro_torch.analysis.trace import (EntryPoint, charlm_trace_setup,
+                                            collect_entry_points,
+                                            cost_of_graph, run_trace,
+                                            trace_entry)
+    from repro_torch.analysis.trace.gate import (DEFAULT_TRACE_TABLE,
+                                                 build_table, load_table,
+                                                 memory_budget_units,
+                                                 to_units)
+    from repro_torch.analysis.trace.registry import anchor
+    from repro_torch.core import client
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    lo, hi = TRACE_BRACKET
+    report = run_trace(ROOT)
+    for t in report.traced:
+        emit({"phase": "trace", "entry": t.entry.name, **t.cost.to_json(),
+              "dot_flops": t.cost.dot_flops,
+              "inplace_leaves": t.inplace_leaves,
+              "donatable_leaves": t.donatable_leaves})
+    for row in report.gate:
+        emit({"phase": "trace_gate", **row.to_json()})
+    table = load_table(os.path.join(ROOT, DEFAULT_TRACE_TABLE))
+    fresh = json.loads(json.dumps(build_table(report.traced, report.gate)))
+    rows = (table or {}).get("entries", {})
+    check(table == fresh,
+          f"the static trace differs from {DEFAULT_TRACE_TABLE}: "
+          f"{[n for n, r in fresh['entries'].items() if rows.get(n) != r]}")
+    check(not report.findings and not report.problems,
+          f"trace: {len(report.findings)} finding(s), problems "
+          f"{report.problems[:4]}")
+    static = {t.entry.name: (t.cost.peak_bytes, cost_of_graph(
+        t.graph, t.donated, granule=CUDA_BLOCK).peak_bytes)
+        for t in report.traced}
+
+    entries = collect_entry_points()
+    ops.reset_launches()
+    outs = {}
+    for ep in entries:
+        fn, args = ep.build()
+        out, peak = tracked_peak(fn, to_card(args, dev))
+        outs[ep.name] = (fn, args, out)
+        exact, blocks = static[ep.name]
+        ratio = blocks / peak
+        emit({"phase": "trace_run", "entry": ep.name,
+              "static_peak_bytes": exact, "static_peak_blocks": blocks,
+              "measured_peak_bytes": peak, "ratio": ratio})
+        check(all_finite(out), f"trace run {ep.name}: non-finite output")
+        check(lo <= ratio <= hi,
+              f"trace run {ep.name}: static {blocks} B in blocks over "
+              f"measured {peak} B = {ratio:.3f}, outside [{lo}, {hi}]")
+    launches = dict(ops.LAUNCHES)
+    for kernel in ("quantize_blocks", "quantize_topk_blocks",
+                   "masked_sum_u64"):
+        check(launches[kernel] > 0,
+              f"the trace entries did not launch {kernel}: {launches}")
+    check(launches["masked_sum_limbs"] == 0,
+          f"the trace entries launched masked_sum_limbs: {launches}")
+    # the card's outputs against the CPU twins' (these launches, the
+    # decode's included, compare and are not counted)
+    for name in ("kernels.wire_dense", "kernels.wire_topk"):
+        fn, args, out = outs[name]
+        want = fn(*args)
+        for got_t, want_t in zip(out[:3], want[:3]):
+            if want_t is not None:
+                check(bits_equal(got_t.cpu(), want_t),
+                      f"{name}: the card's wire tuple differs from the twin's")
+        check(bits_equal(ops.dequantize_blocks(out[0], out[1]).cpu(),
+                         ops.dequantize_blocks(want[0], want[1])),
+              f"{name}: the card's decode differs from the twin's")
+    fn, args, out = outs["kernels.masked_sum"]
+    check(torch.equal(out.cpu(), fn(*args)),
+          "kernels.masked_sum: the card's fold differs from the twin's")
+
+    peaks = {}
+    for b in (client.TRACE_ADAPTED_B, client.TRACE_BASELINE_B):
+        runner, params, batch = charlm_trace_setup(b=b,
+                                                   model=TRACE_FULL_WIDTH)
+        mask, _ = runner.mask_for(params, 0)
+        step = functools.partial(client._local_step, runner)
+
+        def fresh_args():
+            # the step overwrites its optimizer state: a fresh one a run
+            return params, runner.opt.init(params), batch, mask
+
+        ep = EntryPoint(name=f"fl.client_local_step@full_b{b}",
+                        **anchor(client._local_step),
+                        build=lambda: (step, fresh_args()), donatable=(1,))
+        t = trace_entry(ep)
+        static_b = t.cost.peak_bytes
+        blocks = cost_of_graph(t.graph, t.donated,
+                               granule=CUDA_BLOCK).peak_bytes
+        out, _ = allocator_peak(step, fresh_args(), dev)     # warm-up
+        del out
+        out, measured = allocator_peak(step, fresh_args(), dev)
+        check(all_finite(out), f"full width b {b}: non-finite output")
+        del out
+        peaks[b] = (static_b, measured)
+        emit({"phase": "trace_full", "b": b,
+              "params": sum(p.numel() for p in params.values()),
+              "static_peak_bytes": static_b, "static_peak_blocks": blocks,
+              "measured_peak_bytes": measured, "ratio": blocks / measured})
+        check(lo <= blocks / measured <= hi,
+              f"full width b {b}: static {blocks} B in blocks over "
+              f"measured {measured} B = {blocks / measured:.3f}, outside "
+              f"[{lo}, {hi}]")
+    budget = memory_budget_units()
+    (s8, m8), (s32, m32) = (peaks[client.TRACE_ADAPTED_B],
+                            peaks[client.TRACE_BASELINE_B])
+    units = {"static": to_units(s8, s32), "measured": to_units(m8, m32)}
+    verdicts = {k: "VIOLATED" if u > budget else "ok"
+                for k, u in units.items()}
+    emit({"phase": "trace_full_gate", "budget_units": budget,
+          "static_units": units["static"],
+          "measured_units": units["measured"],
+          "static_verdict": verdicts["static"],
+          "measured_verdict": verdicts["measured"],
+          "verdicts_agree": verdicts["static"] == verdicts["measured"]})
+    emit({"phase": "trace_total", "seconds": time.perf_counter() - t_phase,
+          "launches": launches})
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 7: Gemma2-9B prefill and decode through the serving steps
 # ---------------------------------------------------------------------------
@@ -2589,6 +2797,7 @@ def main() -> int:
     det_launches = drive_masked(dev, default_cafl)
     fleet_launches = drive_fleet(dev)
     sched_launches = drive_sched(dev)
+    trace_launches = drive_trace(dev)
     serve_flash = drive_serving(dev, smi)
     serve_flash += drive_serving(dev, smi, **SERVE_MOE)
     serve_flash += drive_serving(dev, smi, **SERVE_MLA)
@@ -2603,6 +2812,7 @@ def main() -> int:
                          + det_launches[r["name"]]
                          + fleet_launches[r["name"]]
                          + sched_launches[r["name"]]
+                         + trace_launches[r["name"]]
                          + serve_launches.get(r["name"], 0))
         r["max_abs_err"] = worst[r["name"]]
     for r in recs:

@@ -22,8 +22,10 @@ happens-before race checker over recorded runs, and the
 ``SchedulePermuter`` that replays a run under adversarial legal event
 permutations (``python -m repro_torch.analysis --sched``).
 
-The trace half of the reference (``repro.analysis.trace``: the jaxpr
-cost model and memory gate) is ROADMAP queue 1 item 14b.
+Trace half (``repro_torch.analysis.trace``): the reference's jaxpr cost
+model, TRACE rules and memory gate over aten graphs recorded on fake
+tensors (``python -m repro_torch.analysis --trace``, table
+``TRACE_BUDGETS_TORCH.json``).
 
 The runtime names load lazily, on first attribute access, so importing
 this package does not import torch.

@@ -6,8 +6,11 @@ codes and JSON. Exit codes: 0 clean (or everything suppressed by the
 baseline), 1 new findings (or stale baseline entries, or a ``--sched``
 problem), 2 usage error. ``--sched`` runs the schedule gate on
 ``--device`` (default ``cuda``, as every entry point of the port; pass
-``--device cpu`` on a machine without a card). ``--trace`` is not ported
-yet (ROADMAP queue 1 item 14b) and raises. The committed baseline is
+``--device cpu`` on a machine without a card). ``--trace`` traces the
+registered entry points to aten graphs on fake tensors, runs the TRACE
+rules and the static memory gate, and diffs ``TRACE_BUDGETS_TORCH.json``
+(``--update-baseline`` re-records it); it allocates nothing, so it runs
+the same on any machine. The committed baseline is
 ``ANALYSIS_BASELINE_TORCH.json``.
 """
 from __future__ import annotations
@@ -51,8 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true", dest="as_json",
                    help="machine-readable JSON on stdout")
     p.add_argument("--trace", action="store_true",
-                   help="trace analysis (cost model and memory gate): "
-                        "not ported yet, ROADMAP queue 1 item 14b")
+                   help="also trace the registered entry points to aten "
+                        "graphs, run the TRACE rules and the static "
+                        "memory gate, and diff TRACE_BUDGETS_TORCH.json "
+                        "(--update-baseline re-records the table)")
     p.add_argument("--sched", action="store_true",
                    help="also run the schedule-determinism sanitizer: "
                         "replay the sched scenarios under adversarial "
@@ -101,10 +106,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     findings = list(result.findings)
     rules_run = list(result.rules_run)
 
+    trace_report = None
     if args.trace:
-        raise NotImplementedError(
-            "--trace (the trace analysis: cost model, memory gate, "
-            "TRACE rules) is not ported yet: ROADMAP queue 1 item 14b")
+        # lazy: tracing imports torch and the model stack
+        from repro_torch.analysis.trace import run_trace
+        trace_report = run_trace(args.root, update=args.update_baseline)
+        findings = assign_occurrences(findings + trace_report.findings)
+        rules_run += trace_report.rules_run
 
     sched_report = None
     if args.sched:
@@ -130,6 +138,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         Baseline.from_findings(findings).save(baseline_path)
         print(f"baseline written: {baseline_path} "
               f"({len(findings)} findings)")
+        if trace_report is not None:
+            from repro_torch.analysis.trace import DEFAULT_TRACE_TABLE
+            print(f"trace table written: "
+                  f"{os.path.join(args.root, DEFAULT_TRACE_TABLE)} "
+                  f"({len(trace_report.traced)} entries)")
         return EXIT_CLEAN
 
     if baseline_path is not None:
@@ -137,7 +150,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         new, suppressed, stale = base.diff(findings)
     else:
         new, suppressed, stale = list(findings), [], []
-    problems = list(sched_report.problems) if sched_report else []
+    problems = list(trace_report.problems) if trace_report else []
+    if sched_report is not None:
+        problems += list(sched_report.problems)
 
     if args.as_json:
         payload = {
@@ -147,6 +162,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "suppressed": [f.to_json() for f in suppressed],
             "stale_baseline": stale,
         }
+        if trace_report is not None:
+            payload["trace"] = {
+                "entries": trace_report.rows_json(),
+                "gate": [r.to_json() for r in trace_report.gate],
+                "problems": list(trace_report.problems),
+            }
         if sched_report is not None:
             payload["sched"] = {
                 "scenarios": sched_report.rows_json(),
@@ -160,6 +181,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(f"{e['path']}:{e['line']}: STALE baseline entry for "
                   f"{e['rule']} (finding no longer exists; run "
                   f"--update-baseline to drop it)")
+        if trace_report is not None:
+            from repro_torch.analysis.trace import format_report
+            print()
+            print(format_report(trace_report))
+            for pr in trace_report.problems:
+                print(f"TRACE PROBLEM: {pr}")
         if sched_report is not None:
             from repro_torch.analysis.sched import format_sched_report
             print()
@@ -172,6 +199,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               f"by baseline, {len(stale)} stale baseline entr"
               f"{'y' if len(stale) == 1 else 'ies'}"
               + (f", {len(problems)} runtime problem(s)"
-                 if sched_report is not None else ""))
+                 if trace_report is not None or sched_report is not None
+                 else ""))
 
     return EXIT_FINDINGS if (new or stale or problems) else EXIT_CLEAN

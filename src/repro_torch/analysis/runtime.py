@@ -70,6 +70,8 @@ EXPLICIT_READS: Dict[str, str] = {
         "the combine's fp32 weights staged as 0-d tensors",
     "fl/executor.py:_train_group":
         "the batched executor's per-client losses, one read per group",
+    "fl/executor.py:_train_stack":
+        "the batched executor's grad-accum divisor staged as a 0-d tensor",
     "fl/executor.py:_stack_batches":
         "a group's microbatches staged from the host streams",
     "fl/aggregator.py:_scale_delta":

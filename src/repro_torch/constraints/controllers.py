@@ -19,7 +19,9 @@ just outside a 0.05 band), so the duals of the two packages are equal.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterable, Mapping, Optional, Union
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Union
+
+import torch
 
 from repro_torch.configs.base import DualConfig
 from repro_torch.core.duals import deadzone
@@ -150,6 +152,50 @@ class PIController(DualController):
 
     def state_snapshot(self) -> Dict[str, Any]:
         return {"name": self.name, "integrals": dict(self._integral)}
+
+
+def dual_step_torch(lam: torch.Tensor, ratio: torch.Tensor, eta: float,
+                    delta: float, lambda_max: float) -> torch.Tensor:
+    """Traceable (vectorised) twin of ``DeadzoneSubgradient.step``, the
+    counterpart of the reference's ``dual_step_jnp``: the paper's Eq. 4
+    over a whole constraint stack at once,
+
+        lambda <- clip(lambda + eta * dz(ratio), 0, lambda_max),
+
+    in the tensors' dtype, with the reference's arithmetic (the band's
+    edge is ``abs(ratio - 1.0) <= delta``, so in f32 a ratio of 1.05
+    lies inside a 0.05 band, as in ``dual_step_jnp``; in f64 outside,
+    as in the scalar law)."""
+    x = ratio - 1.0
+    dz = torch.where(torch.abs(x) <= delta, torch.zeros_like(x), x)
+    return torch.clamp(lam + eta * dz, 0.0, lambda_max)
+
+
+# ---------------------------------------------------------------------------
+# trace-analysis entry points (repro_torch.analysis.trace)
+# ---------------------------------------------------------------------------
+
+
+def _dual_build() -> Any:
+    from repro_torch.configs import get_fl_config
+    cfg = get_fl_config().duals
+
+    def fn(lam: torch.Tensor, ratio: torch.Tensor) -> torch.Tensor:
+        return dual_step_torch(lam, ratio, cfg.eta, cfg.deadzone,
+                               cfg.lambda_max)
+
+    lam = torch.tensor([0.0, 0.5, 1.0, 2.0], dtype=torch.float32)
+    ratio = torch.tensor([0.5, 1.0, 1.05, 1.3], dtype=torch.float32)
+    return fn, (lam, ratio)
+
+
+def trace_entry_points() -> List[Any]:
+    """Declared traceable surface: one dual ascent step over the paper's
+    four multipliers."""
+    from repro_torch.analysis.trace.registry import EntryPoint, anchor
+    return [EntryPoint(
+        name="constraints.dual_update", **anchor(dual_step_torch),
+        build=_dual_build, note="Eq. 4 dead-zoned dual ascent, 4 constraints")]
 
 
 CONTROLLERS = ("deadzone", "adaptive", "pi")

@@ -6,16 +6,18 @@ Eq. 8), with the bottom layers frozen per ``k`` (gradient mask) and the
 resulting update quantized to level ``q`` for the wire.
 
 ``ClientRunner`` holds what every simulated client shares (model,
-optimizer, masks per ``k``) on one device. Training is functional on
-the parameter dict: each microbatch differentiates the loss with respect
-to detached copies of the current weights, and the masked AdamW step
-returns new tensors; the caller's round-global parameters are never
-written.
+optimizer, masks per ``k``) on one device. Each microbatch
+differentiates the loss with respect to detached copies of the current
+weights. The masked AdamW step (``apply_masked_update_``) writes the
+optimizer state and the masked gradients in place, as the reference
+donates them to its jitted step, and returns new parameters: the
+caller's round-global parameters are never written.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -47,12 +49,26 @@ class ClientResult:
 def apply_masked_update(opt, params: Tensors, opt_state, grads: Tensors,
                         mask: Tensors):
     """One optimizer step under a freezing mask: frozen leaves see zero
-    gradient and zero movement; the add happens in fp32 then casts back."""
+    gradient and zero movement; the add happens in fp32 then casts back.
+    Builds new tensors throughout (the batched executor vmaps it)."""
     grads = freezing.apply_mask(grads, mask)
     updates, opt_state = opt.update(grads, opt_state, params)
     updates = freezing.apply_mask(updates, mask)
     new_params = {k: (p.to(torch.float32) + updates[k].to(torch.float32)
                       ).to(p.dtype) for k, p in params.items()}
+    return new_params, opt_state
+
+
+@torch.no_grad()
+def apply_masked_update_(opt, params: Tensors, opt_state, grads: Tensors,
+                         mask: Tensors):
+    """``apply_masked_update``'s step, bit for bit, in place: the
+    gradients are masked in their own buffers and consumed (``grads`` is
+    emptied), the optimizer state is overwritten, and the new parameters
+    are a copy updated in place (``params`` may be the round-global
+    weights every client still reads). -> (new_params, opt_state)."""
+    new_params = {k: p.clone() for k, p in params.items()}
+    opt.update_(grads, opt_state, new_params, mask)
     return new_params, opt_state
 
 
@@ -124,8 +140,8 @@ class ClientRunner:
                 accum = torch.tensor(np.float32(knobs.grad_accum),
                                      device=self.device)
                 grads_sum = {k: g / accum for k, g in grads_sum.items()}
-            w, opt_state = apply_masked_update(self.opt, w, opt_state,
-                                               grads_sum, mask)
+            w, opt_state = apply_masked_update_(self.opt, w, opt_state,
+                                                grads_sum, mask)
 
         topk = self.fl.wire_topk
         delta = finalize_delta(w, params, mask, knobs.q, topk=topk)
@@ -195,3 +211,80 @@ def _masked_wire_mb(delta: Tensors, mask: Tensors, q: int, topk=None) -> float:
             # + 32/256 scale bits == (topk*bits + 288) units
             units += n * (topk * bits + 288)
     return compression.to_mb(units * _UNIT_BYTES)
+
+
+# ---------------------------------------------------------------------------
+# trace-analysis entry points (repro_torch.analysis.trace)
+# ---------------------------------------------------------------------------
+
+#: the two operating points the static memory gate compares: the FedAvg
+#: baseline batch (calibration: its traced peak *defines* Table 1's 0.31
+#: memory units, as core.resources.calibrate does) and the CAFL-L
+#: adapted batch, which is gated against Budgets.memory
+TRACE_BASELINE_B = 32
+TRACE_ADAPTED_B = 8
+
+
+def _local_step(runner: ClientRunner, params: Tensors, opt_state,
+                batch, mask: Tensors):
+    """One full local step (grad + masked update) as one program: the
+    unit whose peak the static memory gate prices."""
+    loss, grads = runner.loss_and_grads(params, batch)
+    new_params, opt_state = apply_masked_update_(runner.opt, params,
+                                                 opt_state, grads, mask)
+    return loss, new_params, opt_state
+
+
+def _local_step_build(b: int):
+    def build():
+        from repro_torch.analysis.trace.registry import charlm_trace_setup
+        runner, params, batch = charlm_trace_setup(b=b)
+        mask, _ = runner.mask_for(params, 0)
+        opt_state = runner.opt.init(params)
+        step = functools.partial(_local_step, runner)
+        return step, (params, opt_state, batch, mask)
+    return build
+
+
+def _grad_step_build():
+    from repro_torch.analysis.trace.registry import charlm_trace_setup
+    runner, params, batch = charlm_trace_setup(b=TRACE_ADAPTED_B)
+    return runner.loss_and_grads, (params, batch)
+
+
+def _update_step_build():
+    from repro_torch.analysis.trace.registry import charlm_trace_setup
+    runner, params, _ = charlm_trace_setup(b=TRACE_ADAPTED_B)
+    mask, _ = runner.mask_for(params, 0)
+    opt_state = runner.opt.init(params)
+    gen = torch.Generator().manual_seed(2)
+    grads = {k: 1e-3 * torch.randn(p.shape, generator=gen, dtype=p.dtype)
+             for k, p in params.items()}
+    return (functools.partial(apply_masked_update_, runner.opt),
+            (params, opt_state, grads, mask))
+
+
+def trace_entry_points() -> List[Any]:
+    """Declared traceable surfaces of the client update path."""
+    from repro_torch.analysis.trace.registry import EntryPoint, anchor
+    local = anchor(_local_step)
+    return [
+        EntryPoint(
+            name="fl.client_grad_step", **anchor(ClientRunner.loss_and_grads),
+            build=_grad_step_build,
+            note="loss and gradients of the char-LM train loss"),
+        EntryPoint(
+            name="fl.client_update_step", **anchor(apply_masked_update_),
+            build=_update_step_build, donatable=(1, 2),
+            note="masked optimizer step; opt-state and grads in place"),
+        EntryPoint(
+            name="fl.client_local_step", **local,
+            build=_local_step_build(TRACE_ADAPTED_B), donatable=(1,),
+            gated=True,
+            note=f"grad + update at adapted b={TRACE_ADAPTED_B}"),
+        EntryPoint(
+            name="fl.client_local_step@baseline", **local,
+            build=_local_step_build(TRACE_BASELINE_B), donatable=(1,),
+            calibration=True,
+            note=f"grad + update at baseline b={TRACE_BASELINE_B}"),
+    ]

@@ -500,6 +500,46 @@ class MaskedSumAggregator(Aggregator):
                 "masks_reconstructed": self._reconstructed}
 
 
+# ---------------------------------------------------------------------------
+# trace-analysis entry points (repro_torch.analysis.trace)
+# ---------------------------------------------------------------------------
+
+#: cohort size the combine entries are traced at (TRACE003 scales its
+#: dense-materialization threshold with this)
+TRACE_COHORT = 4
+
+
+def _combine_build(weighted: bool):
+    def build():
+        from repro_torch.core.aggregation import aggregate
+        deltas = tuple({"w": torch.zeros((64, 64), dtype=torch.float32),
+                        "b": torch.zeros((64,), dtype=torch.float32)}
+                       for _ in range(TRACE_COHORT))
+        weights = [1.0, 2.0, 3.0, 4.0] if weighted else None
+
+        def combine(*ds):
+            return aggregate(list(ds), weights)
+
+        return combine, deltas
+    return build
+
+
+def trace_entry_points() -> List[object]:
+    """Declared traceable surfaces: the delta combine every aggregator
+    policy funnels through (an O(P) incremental fold; TRACE003 proves no
+    O(C*P) stack sneaks back in)."""
+    from repro_torch.analysis.trace.registry import EntryPoint, anchor
+    at = anchor(SyncAggregator)
+    return [
+        EntryPoint(name="fl.aggregate_sync", **at,
+                   build=_combine_build(False), cohort=TRACE_COHORT,
+                   note=f"unweighted mean combine, C={TRACE_COHORT}"),
+        EntryPoint(name="fl.aggregate_weighted", **at,
+                   build=_combine_build(True), cohort=TRACE_COHORT,
+                   note=f"|D_i|-weighted combine, C={TRACE_COHORT}"),
+    ]
+
+
 AGGREGATORS = ("sync", "fedbuff", "staleness", "masked")
 
 

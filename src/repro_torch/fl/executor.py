@@ -93,33 +93,40 @@ class BatchedExecutor(ClientExecutor):
         return {key: torch.from_numpy(np.stack(arrs)).to(runner.device)
                 for key, arrs in per_key.items()}
 
-    def _train_group(self, params: Tensors, mask: Tensors, kn: Knobs,
-                     cids: Sequence[int]) -> Tuple[Tensors, List[float]]:
-        """LocalTrain of one knob group -> (stacked weights (C, ...), the
-        clients' mean train losses)."""
-        c = len(cids)
-        batches = self._stack_batches(cids, kn)
+    def _train_stack(self, params: Tensors, mask: Tensors, batches: Tensors,
+                     grad_accum: int) -> Tuple[Tensors, torch.Tensor]:
+        """LocalTrain of C same-knob clients from their stacked
+        microbatches ({key: (C, s * grad_accum, b, seq)}) -> (stacked
+        weights (C, ...), each client's mean train loss (C,)), both on
+        the device."""
+        c, n = next(iter(batches.values())).shape[:2]
         w = {k: p.unsqueeze(0).expand(c, *p.shape) for k, p in params.items()}
         opt_state = self._init(w)
-        accum = torch.tensor(np.float32(kn.grad_accum),
-                             device=self.runner.device)
+        if grad_accum > 1:
+            accum = torch.tensor(np.float32(grad_accum),
+                                 device=self.runner.device)
         losses = []
-        j = 0
-        for _ in range(kn.s):
+        for j0 in range(0, n, grad_accum):
             grads_sum = None
-            for _ in range(kn.grad_accum):
+            for j in range(j0, j0 + grad_accum):
                 micro = {key: v[:, j] for key, v in batches.items()}
-                j += 1
                 grads, loss = self._grad(w, micro)
                 losses.append(loss)
                 grads_sum = grads if grads_sum is None else {
                     k: a + grads[k] for k, a in grads_sum.items()}
-            if kn.grad_accum > 1:
+            if grad_accum > 1:
                 grads_sum = {k: g / accum for k, g in grads_sum.items()}
             w, opt_state = self._update(w, opt_state, grads_sum, mask)
-        # one host sync per group
-        mean_losses = torch.mean(torch.stack(losses), dim=0).tolist()
-        return w, mean_losses
+        return w, torch.mean(torch.stack(losses), dim=0)
+
+    def _train_group(self, params: Tensors, mask: Tensors, kn: Knobs,
+                     cids: Sequence[int]) -> Tuple[Tensors, List[float]]:
+        """LocalTrain of one knob group -> (stacked weights (C, ...), the
+        clients' mean train losses)."""
+        w, losses = self._train_stack(params, mask,
+                                      self._stack_batches(cids, kn),
+                                      kn.grad_accum)
+        return w, losses.tolist()          # one host sync per group
 
     def run_round(self, params, assignments):
         runner = self.runner
@@ -144,6 +151,40 @@ class BatchedExecutor(ClientExecutor):
                     wire_mb_actual=_masked_wire_mb(delta, mask, kn.q,
                                                    topk=topk))
         return results
+
+
+# ---------------------------------------------------------------------------
+# trace-analysis entry points (repro_torch.analysis.trace)
+# ---------------------------------------------------------------------------
+
+
+def _batched_round_build():
+    from repro_torch.analysis.trace.registry import (TRACE_MODEL,
+                                                     charlm_trace_setup)
+    c, s, ga, b, seq = 2, 2, 1, 4, TRACE_MODEL["seq_len"]
+    runner, params, _ = charlm_trace_setup(b=b)
+    ex = BatchedExecutor(runner)
+    mask, _ = runner.mask_for(params, 0)
+    gen = torch.Generator().manual_seed(3)
+    batches = {key: torch.randint(0, TRACE_MODEL["vocab"], (c, s * ga, b, seq),
+                                  generator=gen, dtype=torch.int32)
+               for key in ("tokens", "targets")}
+
+    def cohort_round(params, mask, batches):
+        return ex._train_stack(params, mask, batches, ga)
+
+    return cohort_round, (params, mask, batches)
+
+
+def trace_entry_points() -> List[object]:
+    """Declared traceable surface: one cohort round of the batched
+    executor (vmap over clients of each microbatch's gradient and each
+    step's masked update; steps and microbatches unroll)."""
+    from repro_torch.analysis.trace.registry import EntryPoint, anchor
+    return [EntryPoint(
+        name="fl.executor_batched_round",
+        **anchor(BatchedExecutor._train_stack), build=_batched_round_build,
+        note="vmap(C=2) over s=2 steps of ga=1, b=4")]
 
 
 EXECUTORS = {

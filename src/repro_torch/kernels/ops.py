@@ -169,13 +169,19 @@ def masked_sum_u64(vals: np.ndarray, *, device: DeviceLike = None
     no CPU shortcut on a card: asked for the card, it launches the
     kernel or raises."""
     vals = np.ascontiguousarray(vals, dtype=np.uint64)
-    _check_cohort(vals.shape[0])
     bits = torch.from_numpy(vals.view(np.int64)).to(resolve_device(device))
+    return fold_u64_bits(bits).cpu().numpy().view(np.uint64)
+
+
+def fold_u64_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``masked_sum_u64``'s fold on the device: (C, n) int64, the bits
+    of uint64 values -> (n,) int64, the bits of their column sums mod
+    2^64. The card runs ``wire.masked_sum_u64``; the CPU its plain
+    version."""
+    _check_cohort(bits.shape[0])
     if _on_card(bits):
-        total = wk.masked_sum_u64(bits)
-    else:
-        total = ref.masked_sum_u64_ref(bits)
-    return total.cpu().numpy().view(np.uint64)
+        return wk.masked_sum_u64(bits)
+    return ref.masked_sum_u64_ref(bits)
 
 
 # ---------------------------------------------------------------------------
@@ -196,3 +202,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                        softcap=softcap, scale=scale)
     return fak.flash_attention_bshd(q, k, v, causal=causal, window=window,
                                     softcap=softcap, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# trace-analysis entry points (repro_torch.analysis.trace)
+# ---------------------------------------------------------------------------
+
+
+def _wire_build(bits: int, topk: Optional[int]):
+    def build():
+        x = torch.randn(1 << 16, generator=torch.Generator().manual_seed(4))
+
+        def fn(t):
+            return quantize_wire(t, bits=bits, topk=topk)
+
+        return fn, (x,)
+    return build
+
+
+def _masked_sum_build():
+    gen = torch.Generator().manual_seed(5)
+    bits = torch.randint(-(1 << 63), (1 << 63) - 1, (8, 4096), generator=gen,
+                         dtype=torch.int64)
+    return fold_u64_bits, (bits,)
+
+
+def trace_entry_points() -> list:
+    """Declared traceable surfaces: the wire pipeline at both formats and
+    the secure-aggregation cohort fold, traced through the kernels'
+    stand-ins (f32 and int8 on the wire; the fold
+    takes uint64 bits in and gives them out, so TRACE001 sees no
+    promotion)."""
+    from repro_torch.analysis.trace.registry import EntryPoint, anchor
+    wire = anchor(quantize_wire)
+    return [
+        EntryPoint(name="kernels.wire_dense", **wire,
+                   build=_wire_build(8, None),
+                   note="dense int8 wire tuple, 64k params"),
+        EntryPoint(name="kernels.wire_topk", **wire,
+                   build=_wire_build(2, 64),
+                   note="2-bit top-64 sparse wire tuple, 64k params"),
+        EntryPoint(name="kernels.masked_sum", **anchor(fold_u64_bits),
+                   build=_masked_sum_build,
+                   note="uint64 cohort fold (masked_sum_u64), C=8, n=4096"),
+    ]

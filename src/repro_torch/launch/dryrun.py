@@ -44,9 +44,8 @@ import json
 import os
 import time
 import traceback
-from typing import Optional, Union
+from typing import Union
 
-import numpy as np
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed._tools.mem_tracker import MemTracker
@@ -57,6 +56,8 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.stand_ins import flash_attention as _flash_stand_in
+from repro_torch.kernels.stand_ins import flash_flops as _flash_flops
 from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, PEAK_FLOPS_BF16,
                                      make_mesh)
@@ -100,39 +101,6 @@ class _Traffic(TorchDispatchMode):
         self.bytes += sum(map(_distinct_bytes, ins + outs))
         self.elements += sum(t.numel() for t in outs)
         return out
-
-
-@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
-def _flash_stand_in(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool, window: Optional[int]) -> torch.Tensor:
-    """The flash kernel in a trace: an opaque op with its output's shape
-    (B, Sq, H, Dv) and no workspace, as the kernel holds its tiles on
-    chip; the plain twin would hold the (Sq, Sk) scores."""
-    raise RuntimeError("the flash stand-in runs on fake tensors only")
-
-
-@_flash_stand_in.register_fake
-def _(q, k, v, causal, window):
-    return q.new_empty(tuple(q.shape[:-1]) + (v.shape[-1],))
-
-
-def _attended_pairs(sq: int, sk: int, causal: bool,
-                    window: Optional[int]) -> int:
-    """(query, key) pairs the kernel's mask admits: every pair without
-    ``causal``; else query i (top-left aligned) sees keys
-    max(0, i - window + 1) .. i."""
-    if not causal:
-        return sq * sk
-    seen = np.minimum(np.arange(1, sq + 1), sk)
-    if window is not None:
-        seen = np.minimum(seen, window)
-    return int(seen.sum())
-
-
-def _flash_flops(q_shape, k_shape, v_shape, causal, window, out_shape=None):
-    b, sq, h, dq = q_shape
-    return 2 * b * h * _attended_pairs(sq, k_shape[1], causal, window) * (
-        dq + v_shape[-1])
 
 
 def _flash_via_stand_in(q, k, v, *, causal=True, window=None, softcap=None,

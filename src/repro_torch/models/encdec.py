@@ -52,7 +52,7 @@ def _dec_layer_init(gen, cfg, device):
 def _enc_layer(p, x, cfg):
     b, s, _ = x.shape
     q, k, v = L._qkv(p["attn"], L.norm_apply(p["ln1"], x), cfg)
-    pos = torch.arange(s, device=x.device).expand(b, s)
+    pos = torch.arange(s, device=x.device, dtype=torch.int32).expand(b, s)
     q = L.rope(q, pos, cfg.rope_theta)
     k = L.rope(k, pos, cfg.rope_theta)
     x = x + L.bidir_attention(q, k, v).reshape(b, s, -1) @ p["attn"]["wo"]
@@ -134,7 +134,8 @@ class EncDecModel(Z.Model):
         cfg = self.cfg
         x = Z.embed_tokens(p["io"], tokens, cfg)
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = torch.arange(s, device=x.device,
+                                 dtype=torch.int32).expand(b, s)
 
         def run(u):
             nonlocal x

@@ -255,8 +255,8 @@ def bidir_attention(q, k, v, *, softcap: Optional[float] = None,
         return ops.flash_attention(q, k, v, causal=False, softcap=softcap,
                                    scale=scale)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    qpos = torch.arange(q.shape[1], device=q.device)
-    kpos = torch.arange(k.shape[1], device=q.device)
+    qpos = torch.arange(q.shape[1], device=q.device, dtype=torch.int32)
+    kpos = torch.arange(k.shape[1], device=q.device, dtype=torch.int32)
     return _attend_block(q, k, v, qpos, kpos, scale, softcap, None,
                          kv_chunk=kv_chunk, causal=False)
 
@@ -275,8 +275,8 @@ def blockwise_attention(q, k, v, *, q_chunk: int,
     for q0 in range(0, s, c):
         q1 = min(q0 + c, s)
         k0 = 0 if window is None else max(0, q1 - window - (q1 - q0))
-        qpos = torch.arange(q0, q1, device=q.device)
-        kpos = torch.arange(k0, q1, device=q.device)
+        qpos = torch.arange(q0, q1, device=q.device, dtype=torch.int32)
+        kpos = torch.arange(k0, q1, device=q.device, dtype=torch.int32)
         outs.append(_attend_block(q[:, q0:q1], k[:, k0:q1], v[:, k0:q1], qpos,
                                   kpos, scale, softcap, window))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
@@ -296,7 +296,7 @@ def decode_attention(q, k_cache, v_cache, index, *, window: Optional[int],
     scores = torch.einsum("bqkgd,blkd->bkgql", qg,
                           k_cache).to(torch.float32) * (1.0 / math.sqrt(d))
     scores = _softcap(scores, softcap)
-    slot = torch.arange(s_buf, device=q.device)
+    slot = torch.arange(s_buf, device=q.device, dtype=torch.int32)
     age = ((index - 1) % s_buf - slot) % s_buf           # 0 = newest
     valid = age < torch.clamp(index, max=s_buf)
     if window is not None:
@@ -498,7 +498,8 @@ def mla_apply_decode(p, x, cache, cfg: ModelConfig):
               + torch.einsum("bqhd,bsd->bhqs", q_rope, k_rope)
               ).to(torch.float32) * _mla_scale(m)
     scores = _softcap(scores, cfg.attn_softcap)
-    age = ((idx - 1) % s_buf - torch.arange(s_buf, device=x.device)) % s_buf
+    slot = torch.arange(s_buf, device=x.device, dtype=torch.int32)
+    age = ((idx - 1) % s_buf - slot) % s_buf
     scores = scores.masked_fill(~(age < torch.clamp(idx, max=s_buf)), -1e30)
     w = torch.softmax(scores, dim=-1).to(c_kv.dtype)
     ctx_lat = torch.einsum("bhqs,bsr->bqhr", w, c_kv)          # (B,1,H,r)

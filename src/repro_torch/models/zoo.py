@@ -191,7 +191,8 @@ class Model:
                        @ p["io"]["frontend_proj"])
             x = torch.cat([patches, x], dim=1)
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = torch.arange(s, device=x.device,
+                                 dtype=torch.int32).expand(b, s)
         cache_len = None if cache_extra is None else s + cache_extra
         x, caches, aux = T.stack_apply_full(p["stack"], x, positions, cfg,
                                             cache_len, use_decode_window,

@@ -35,9 +35,11 @@ class Optimizer(NamedTuple):
     ``state``, a piece of a parameter (``UPDATE_PIECE`` elements along
     dim 0) at a time, so that old and new state are never live together.
     A mask (a 0/1 tensor per parameter, broadcast against its leading
-    dims) multiplies the gradients, then the updates, each cast to the
-    tensor's dtype. It empties ``grads`` as it goes, freeing each
-    gradient once its parameter is updated."""
+    dims) multiplies the gradients in their own buffers (a gradient
+    shared by two parameters, or laid out with overlaps, is copied
+    first), then the updates, each cast to the tensor's dtype. It
+    empties ``grads`` as it goes, freeing each gradient once its
+    parameter is updated."""
     init: Callable
     update: Callable
     update_: Callable
@@ -55,6 +57,8 @@ def _in_place(piece_update: Callable, tick: Optional[Callable] = None
                 mask: Optional[Tensors] = None):
         if tick is not None:
             tick(state)
+        if mask is not None:
+            _own_buffers(grads)
         for k in list(grads):
             g_all, p_all = grads.pop(k), params[k]
             m_all = None if mask is None else mask[k]
@@ -62,7 +66,7 @@ def _in_place(piece_update: Callable, tick: Optional[Callable] = None
                 g, p = g_all[rows], p_all[rows]
                 m = m_all if m_all is None or m_all.ndim == 0 else m_all[rows]
                 if m is not None:
-                    g = g * m.to(g.dtype)
+                    g.mul_(m.to(g.dtype))
                 u = piece_update(state, k, rows, g, p)
                 if m is not None:
                     u = u * m.to(u.dtype)
@@ -71,6 +75,17 @@ def _in_place(piece_update: Callable, tick: Optional[Callable] = None
         return params, state
 
     return update_
+
+
+def _own_buffers(grads: Tensors) -> None:
+    """Make every gradient safe to write in place: autograd may hand one
+    tensor to two parameters, or an expanded one (a broadcast's
+    gradient); those are copied."""
+    seen = set()
+    for k, g in grads.items():
+        if id(g) in seen or not g.is_contiguous():
+            grads[k] = g.clone(memory_format=torch.contiguous_format)
+        seen.add(id(g))
 
 
 def _pieces(t: torch.Tensor):

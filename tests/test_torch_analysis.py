@@ -324,11 +324,6 @@ def test_cli_update_baseline_then_clean(tmp_path, capsys):
     assert cli_main(["--root", root, "--baseline", base, *PATHS]) == 0
 
 
-def test_cli_trace_names_item_14b():
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        cli_main(["--root", CLEAN, "--trace"])
-
-
 # ---------------------------------------------------------------------------
 # the repo itself: the zero-new-findings policy
 # ---------------------------------------------------------------------------

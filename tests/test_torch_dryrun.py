@@ -42,6 +42,7 @@ from repro.models import build as jbuild  # noqa: E402
 from repro_torch.configs import (ARCH_IDS, INPUT_SHAPES,  # noqa: E402
                                  get_config, get_smoke_config)
 from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.kernels import stand_ins  # noqa: E402
 from repro_torch.launch import dryrun, mesh, specs  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 
@@ -196,11 +197,11 @@ def test_full_width_record_allocates_nothing(tmp_path):
 def test_flash_pairs():
     """The flash stand-in's work: the pairs a causal, windowed or full
     mask admits (top-left aligned, as the kernel)."""
-    assert dryrun._attended_pairs(4, 4, True, None) == 10
-    assert dryrun._attended_pairs(6, 6, True, 2) == 1 + 2 * 5
-    assert dryrun._attended_pairs(3, 5, False, None) == 15
-    assert dryrun._attended_pairs(1, 4096, False, None) == 4096
-    assert dryrun._attended_pairs(8, 3, True, None) == 1 + 2 + 3 * 6
+    assert stand_ins.attended_pairs(4, 4, True, None) == 10
+    assert stand_ins.attended_pairs(6, 6, True, 2) == 1 + 2 * 5
+    assert stand_ins.attended_pairs(3, 5, False, None) == 15
+    assert stand_ins.attended_pairs(1, 4096, False, None) == 4096
+    assert stand_ins.attended_pairs(8, 3, True, None) == 1 + 2 + 3 * 6
 
 
 @pytest.mark.parametrize("shape", list(INPUT_SHAPES))

@@ -41,7 +41,9 @@ def test_port_imports_no_jax_and_no_reference():
                 "launch.specs", "launch.mesh", "launch.dryrun",
                 "analysis.engine", "analysis.rules_torch",
                 "analysis.sched.permute", "analysis.sched.gate",
-                "analysis.runtime", "analysis.cli",
+                "analysis.runtime", "analysis.cli", "analysis.trace.cost",
+                "analysis.trace.registry", "analysis.trace.rules",
+                "analysis.trace.gate", "kernels.stand_ins",
                 *(f"examples.{name}" for name in EXAMPLES)):
         assert f"repro_torch.{sub}" in names
     code = (
