@@ -188,16 +188,42 @@ before the final line:
    port's dry-run estimate of the same setting (``launch.dryrun``, run in
    worker processes meanwhile), MFU against 989 TFLOP/s; Gemma2's line
    is followed by its dry-run record's roofline.
-9. a ``kernel_off_path`` line for the limb entry of the masked sum (all
+9. mesh: rank 0 of the single production mesh (256 cards as data 16 x
+   model 16, ``launch.mesh.use_mesh`` over a fake process group, the
+   ``default`` recipe of ``launch.specs``), Gemma2-9B at full width and
+   depth (42 layers, weights seeded on the card), each cell a rank's
+   share of ``INPUT_SHAPES``: ``train_4k`` (16 x 4,096, two
+   ``make_train_step`` steps with the recompute), ``prefill_32k`` (2 x
+   32,768, twice; the flash kernel on the rank's one query head, through
+   ``ops.attention_local``), ``decode_32k`` (8 sequences over a cache
+   split over model, 4 steps). The port's CPU dry-run of each cell
+   (``dryrun --mesh single``) runs in worker processes meanwhile; the
+   card runs the dry-run's own step and arguments
+   (``dryrun._step_and_args``: local shards on the card, then seeded).
+   One ``mesh`` line a cell: every parameter's placements as
+   ``specs.param_shardings`` gives them; the first run's collectives
+   (``_c10d_functional``, per type, counted by the dry-run's own
+   ``_Traffic``) equal in count and bytes to the record's; peak memory
+   over the record's ``per_device_total_gb`` in [0.8, 1.25]; the timed
+   runs' seconds (CUDA events) beside the record's t_compute_s +
+   t_memory_s (printed); host syncs of the timed runs (printed); the
+   flash kernel launched under the prefill and not under the train
+   step, and, on one layer's seeded share fed as the prefill feeds it
+   (``ops.flash_attention`` on DTensors: rank 0's query head, its KV
+   head sliced from the gathered k/v), equal to its twin within the
+   sweep's bound. The fake group moves no data: no value that crosses a
+   collective is checked.
+10. a ``kernel_off_path`` line for the limb entry of the masked sum (all
    the summary's keys; no main path runs it, so its launches must be 0),
-   the ``{"kernels": [...]}`` summary of the main paths' kernels, the
-   nvidia-smi line, and the final ``{"ok": true, ...}`` line.
+   the ``{"kernels": [...]}`` summary of the main paths' kernels (the
+   flash row's launches include the mesh phase's), the nvidia-smi line,
+   and the final ``{"ok": true, ...}`` line.
 
-Each path of phases 3 to 8 (each engine run, each gate scenario, each
-timed prefill, each train step) runs with the launch counters zeroed just
-before it and read just after; phases 3 to 7 fail if a kernel of their
-path was never launched, phase 8 if the flash kernel was launched under a
-gradient.
+Each path of phases 3 to 9 (each engine run, each gate scenario, each
+timed prefill, each train step, each mesh cell) runs with the launch
+counters zeroed just before it and read just after; phases 3 to 7 fail
+if a kernel of their path was never launched, phase 8 if the flash
+kernel was launched under a gradient, phase 9 on either.
 
 Where the time goes under torch.profiler is ``scripts/profile_port.py``'s
 work, not this script's.
@@ -424,6 +450,18 @@ TRAIN_SMOKE_EPS = 1e-6
 TRAIN_SMOKE_RTOL = 1e-4
 TRAIN_SMOKE_STEP_RTOL = 5e-2
 TRAIN_SMOKE_STATE_RTOL = 1e-4
+#: the mesh phase: rank 0 of the single mesh (256 cards as data 16 x
+#: model 16, the default recipe) over a fake process group, Gemma2-9B at
+#: full width and depth, each cell's local share of INPUT_SHAPES: the
+#: train step (16 x 4,096 a rank) twice, the prefill (2 x 32,768) twice,
+#: the decode step (8 over a 32,768-slot cache split over model, 32,000
+#: tokens in) four times; the first run of each counts the collectives,
+#: the others are timed. Peak memory over the port's CPU dry-run record
+#: of the same cell within MESH_MEMORY_BAND.
+MESH_ARCH = "gemma2-9b"
+MESH_RUNS = {"train_4k": 2, "prefill_32k": 2, "decode_32k": 4}
+MESH_FILLED = 32_000
+MESH_MEMORY_BAND = (0.8, 1.25)
 
 
 class SmokeFailure(RuntimeError):
@@ -2709,6 +2747,195 @@ def drive_train_phase(dev, smi: str) -> float:
     return time.perf_counter() - t0
 
 
+def mesh_record(arch, shape) -> dict:
+    """The port's CPU dry-run record of a cell on rank 0 of the single
+    mesh (``launch.dryrun --mesh single``; run in a worker process while
+    the card runs the cell)."""
+    from repro_torch.launch import dryrun
+    out = tempfile.mkdtemp(prefix="mesh_dryrun_")
+    try:
+        return dryrun.run_one(arch, shape, out_dir=out, force=True,
+                              mesh="single")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def seeded_(tree, gen, vocab: int):
+    """Fill each DTensor leaf's local shard in place from ``gen``:
+    normals x 0.02 (floats), ids below ``vocab`` (integers)."""
+    from torch.utils._pytree import tree_leaves
+    for t in tree_leaves(tree):
+        local = t.to_local()
+        if local.dtype.is_floating_point:
+            local.normal_(0.0, 0.02, generator=gen)
+        else:
+            local.random_(0, vocab, generator=gen)
+    return tree
+
+
+def flash_layer_check(dev, cfg, mesh) -> dict:
+    """The flash wrapper on one Gemma2 local layer's share of rank 0 at
+    prefill_32k, as the mesh's prefill feeds it: q (2 x 32,768, its one
+    query head of 16, split over ``model``) and k/v gathered over the
+    head split (all 8 KV heads), seeded, through ``ops.flash_attention``
+    (``attention_local`` slices rank 0's KV head, a strided view of the
+    gathered k/v) against the plain version on the contiguous slice, at
+    the sweep's bound."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, k, v = flash_inputs(gen, 2, 32_768, 1, cfg.num_kv_heads,
+                           cfg.head_dim, "bfloat16", dev)
+    heads = cfg.num_heads // mesh.shape[1]
+    # rank 0's shares: global batch 32 over data, 16 q heads over model
+    qd = DTensor.from_local(q, mesh, [Shard(0), Shard(2)], run_check=False)
+    kd, vd = (DTensor.from_local(t, mesh, [Shard(0), Replicate()],
+                                 run_check=False) for t in (k, v))
+    kw = dict(causal=True, window=cfg.window, softcap=cfg.attn_softcap)
+    got = ops.flash_attention(qd, kd, vd, **kw).to_local()
+    g = cfg.num_heads // cfg.num_kv_heads
+    kv = slice(0, max(1, heads // g))       # rank 0's KV heads
+    want = ref.flash_attention_ref(q, k[:, :, kv].contiguous(),
+                                   v[:, :, kv].contiguous(), **kw)
+    torch.cuda.synchronize()
+    gap, ok = flash_gap(got, want, "bfloat16")
+    check(ok, f"mesh: flash_attention_bhsd through attention_local differs "
+          f"on a rank's layer: max |gap| {gap}")
+    return {"q": list(q.shape), "kv_gathered": list(k.shape), **kw,
+            "max_abs_err": gap}
+
+
+def drive_mesh(dev, smi: str) -> int:
+    """Phase 9: rank 0 of the single mesh on the card, one cell a
+    ``mesh`` line (``MESH_RUNS``); the dry-run records of the same cells
+    come from worker processes meanwhile. Each cell's step and arguments
+    are the dry-run's own (``dryrun._step_and_args``: the recipe's
+    placements, local shards on the card), seeded. Each cell: every
+    parameter's placements as ``specs.param_shardings`` gives them
+    (after the steps too); the collectives of the first run, counted by
+    the dry-run's ``_Traffic``, per type equal in count and bytes to the
+    record's; peak memory over the record's within ``MESH_MEMORY_BAND``;
+    the timed runs' seconds (CUDA events) beside the record's
+    t_compute_s + t_memory_s (printed, not held: one rank's compute, no
+    communication); the flash kernel launched under the prefill and not
+    under the train step, and the flash wrapper on a rank's layer held
+    against its plain version; the host syncs of the timed runs counted
+    (torch's sync debug mode). -> the prefill's flash launches."""
+    import multiprocessing
+    import warnings
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import axis_size, use_mesh
+
+    cfg = get_config(MESH_ARCH)
+    shapes = [INPUT_SHAPES[name] for name in MESH_RUNS]
+    flash_total = 0
+    with ProcessPoolExecutor(
+            max_workers=len(shapes),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        records = {s.name: pool.submit(mesh_record, cfg, s) for s in shapes}
+        for shape in shapes:
+            torch.cuda.empty_cache()
+            with use_mesh("single", dev.type) as mesh:
+                gen = torch.Generator(device=dev).manual_seed(0)
+                step, args = dryrun._step_and_args(cfg, shape, "adamw", 1,
+                                                   mesh)
+                for i, tree in enumerate(args):
+                    if not (shape.kind == "train" and i == 1):  # moments
+                        seeded_(tree, gen, cfg.vocab_size)
+                if shape.kind == "decode":
+                    for name, t in S._tree_paths(args[1]):
+                        if name.endswith("index"):
+                            t.to_local().fill_(MESH_FILLED)
+                params = args[0]
+                want = S.param_shardings(mesh, params, cfg)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launches()
+                count = dryrun._Traffic()
+                with dryrun._shape_inference_paused(), count:
+                    out = step(*args)
+                del out
+                seconds, syncs = [], 0
+                for _ in range(MESH_RUNS[shape.name] - 1):
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        torch.cuda.set_sync_debug_mode("warn")
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        out = step(*args)
+                        end.record()
+                        torch.cuda.set_sync_debug_mode(0)
+                        torch.cuda.synchronize()
+                        seconds.append(start.elapsed_time(end) / 1e3)
+                    syncs += sum("synchroniz" in str(w.message)
+                                 for w in caught)
+                    del out
+                peak = torch.cuda.max_memory_allocated()
+                flash = ops.LAUNCHES["flash_attention_bhsd"]
+                placed = sum(tuple(params[n].placements) == want[n]
+                             for n in want)
+                local_batch = shape.global_batch // axis_size(mesh, "data")
+                del step, args, params
+                layer = (flash_layer_check(dev, cfg, mesh)
+                         if shape.kind == "prefill" else None)
+            rec = records[shape.name].result()
+            check(rec["status"] == "ok", f"mesh dry-run {shape.name}: "
+                  f"{rec.get('error', '')[-1500:]}")
+            coll = rec["collectives"]
+            est = rec["memory"]["per_device_total_gb"] * 1e9
+            r = rec["roofline"]
+            line = {"phase": "mesh", "config": cfg.name,
+                    "shape": shape.name, "mesh": rec["mesh"], "rank": 0,
+                    "recipe": rec["recipe"], "layers": cfg.num_layers,
+                    "local_batch": local_batch,
+                    "seq": shape.seq_len, "runs": MESH_RUNS[shape.name],
+                    "placements_ok": f"{placed} of {len(want)}",
+                    "collective_counts": count.coll_counts,
+                    "collective_bytes": count.coll_bytes,
+                    "dryrun_counts": coll["counts"],
+                    "dryrun_bytes": coll["bytes_per_device"],
+                    "peak_gb": peak / 1e9, "dryrun_gb": est / 1e9,
+                    "peak_over_dryrun": peak / est,
+                    "step_s": seconds,
+                    "dryrun_compute_plus_memory_s":
+                        r["t_compute_s"] + r["t_memory_s"],
+                    "dryrun_collective_s": r["t_collective_s"],
+                    "dryrun_trace_s": rec["trace_s"],
+                    "flash_launches": flash, "host_syncs": syncs,
+                    "nvidia_smi": smi}
+            if layer is not None:
+                line["flash_layer"] = layer
+            emit(line)
+            off = len(want) - placed
+            check(off == 0, f"mesh {shape.name}: {off} parameters off "
+                  "their recipe's placements")
+            for name in coll["counts"]:
+                got = (count.coll_counts[name], count.coll_bytes[name])
+                check(got == (coll["counts"][name],
+                              coll["bytes_per_device"][name]),
+                      f"mesh {shape.name}: {name} x {got[0]} ({got[1]} B) "
+                      f"on the card, x {coll['counts'][name]} "
+                      f"({coll['bytes_per_device'][name]} B) in the dry-run")
+            lo, hi = MESH_MEMORY_BAND
+            check(lo <= peak / est <= hi,
+                  f"mesh {shape.name}: peak {peak / 1e9:.2f} GB over the "
+                  f"dry-run's {est / 1e9:.2f} GB out of [{lo}, {hi}]")
+            if shape.kind == "prefill":
+                check(flash > 0, "mesh: the prefill launched no flash")
+                flash_total += flash
+            if shape.kind == "train":
+                check(flash == 0, f"mesh: the train step launched "
+                      f"flash {flash} times")
+    return flash_total
+
+
 def full_width(dev):
     """The full-width char-LM's config (vocab widened to the corpus), FL
     config, corpus, model, and one delta-like tensor per parameter leaf
@@ -2807,6 +3034,9 @@ def main() -> int:
     serve_flash += drive_serve_smoke(dev)
     serve_launches = {"flash_attention_bhsd": serve_flash}
     emit({"phase": "train_total", "seconds": drive_train_phase(dev, smi)})
+    t0 = time.perf_counter()
+    serve_launches["flash_attention_bhsd"] += drive_mesh(dev, smi)
+    emit({"phase": "mesh_total", "seconds": time.perf_counter() - t0})
     for r in recs + [limbs_rec]:
         r["launches"] = (launches[r["name"]] + train_launches[r["name"]]
                          + det_launches[r["name"]]

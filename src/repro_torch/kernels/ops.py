@@ -12,6 +12,7 @@ on ``device`` first, and ``device=None`` means ``"cuda"``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -196,12 +197,80 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Model layout: q (B,S,H,D), k/v (B,S,KVH,D) -> (B,S,H,D) in
     ``q.dtype``. The card runs the flash kernel on these tensors through
     their strides (``flash_attention_bshd``); the CPU runs
-    ``ref.flash_attention_ref``. Forward only."""
+    ``ref.flash_attention_ref``. Forward only. DTensors (a mesh's step)
+    go through ``attention_local``: each rank runs the same route on its
+    own heads."""
+    if _is_dtensor(q):
+        return attention_local(flash_attention, q, k, v, causal=causal,
+                               window=window, softcap=softcap, scale=scale)
     if not _on_card(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale)
     return fak.flash_attention_bshd(q, k, v, causal=causal, window=window,
                                     softcap=softcap, scale=scale)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def attention_local(fn, q, k, v, **kw):
+    """Attention of DTensors q (B,S,H,D), k/v (B,S,KVH,D) as ``fn`` (an
+    attention of local tensors in the same layout) on each rank's share:
+    the batch stays split as it is, the query heads too; the sequence
+    is gathered (a causal or windowed mask is aligned on whole
+    sequences). KV heads split over the same mesh dims as the query
+    heads stay split when their count divides as the query's does;
+    otherwise (GQA: Gemma2's 8 KV heads under 16 query heads on a
+    16-way axis) k/v are gathered over those dims and each rank slices
+    the KV heads its own query heads read, from its coordinate on them:
+    the kernel's ``ih // g`` on a local head index would read KV head 0
+    on every rank. Runs through ``local_map``, so gradients flow."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.models.layers import redistribute_at
+    mesh = q.device_mesh
+    qp = tuple(pl if pl.is_shard() and pl.dim in (0, 2) else Replicate()
+               for pl in q.placements)
+    heads_on = [i for i, pl in enumerate(qp) if pl.is_shard(2)]
+    n_split = math.prod(mesh.shape[i] for i in heads_on)
+    h, kvh = q.shape[2], k.shape[2]
+    kv_split = kvh % n_split == 0
+    kp = tuple(Shard(2) if i in heads_on and kv_split
+               else pl if pl.is_shard(0) else Replicate()
+               for i, pl in enumerate(qp))
+    q = redistribute_at("attention", q, qp)
+    k = redistribute_at("attention", k, kp)
+    v = redistribute_at("attention", v, kp)
+    g, h_loc = h // kvh, h // n_split
+    lo = hi = None
+    if not kv_split:
+        if h_loc % g and g % h_loc:
+            raise ValueError(f"{h_loc} local query heads of {h} do not "
+                             f"group over {kvh} KV heads")
+        coord = mesh.get_coordinate()
+        rank = 0
+        for i in heads_on:                   # mesh order: major to minor
+            rank = rank * mesh.shape[i] + coord[i]
+        lo = rank * h_loc // g
+        hi = lo + max(1, h_loc // g)
+
+    def local(ql, kl, vl):
+        if lo is not None:
+            kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+        return fn(ql, kl, vl, **kw)
+
+    # a k/v gathered over the query's head split feeds each rank's own
+    # heads: its gradient there is the sum over the ranks
+    from torch.distributed.tensor import Partial
+    kg = tuple(Partial() if i in heads_on and not kv_split else pl
+               for i, pl in enumerate(kp))
+    return local_map(local, out_placements=list(qp),
+                     in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kg, kg),
+                     device_mesh=mesh)(q, k, v)
 
 
 # ---------------------------------------------------------------------------

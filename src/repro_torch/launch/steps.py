@@ -12,16 +12,28 @@ attention is the flash kernel on the card.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import InputShape
 from repro_torch.models.convert import as_params
+from repro_torch.models.layers import active_mesh
 from repro_torch.models.zoo import Model
 from repro_torch.optim import Optimizer
 
 Tensors = Dict[str, torch.Tensor]
+
+
+def mesh_scope():
+    """Under ``launch.mesh.use_mesh``: DTensor's implicit replication, so
+    that the plain tensors a step makes (positions, masks, accumulators)
+    join its DTensors as replicated ones; a null context otherwise."""
+    if active_mesh()[0] is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
 
 
 def make_train_step(model: Model, optimizer: Optimizer,
@@ -80,8 +92,9 @@ def make_train_step(model: Model, optimizer: Optimizer,
     @torch.no_grad()
     def train_step(params, opt_state, batch, mask: Optional[Tensors] = None):
         params = as_params(params)
-        loss, grads = accumulate(params, batch)
-        optimizer.update_(grads, opt_state, params, mask)
+        with mesh_scope():
+            loss, grads = accumulate(params, batch)
+            optimizer.update_(grads, opt_state, params, mask)
         return params, opt_state, loss
 
     if not with_freezing_mask:
@@ -103,8 +116,9 @@ def make_prefill_step(model: Model, shape: InputShape,
     long = shape.name == "long_500k"
 
     def prefill_step(params, batch):
-        return model.prefill(params, batch, use_decode_window=long,
-                             max_new_tokens=max_new_tokens)
+        with mesh_scope():
+            return model.prefill(params, batch, use_decode_window=long,
+                                 max_new_tokens=max_new_tokens)
 
     return prefill_step
 
@@ -113,6 +127,7 @@ def make_decode_step(model: Model):
     """(params, caches, tokens (B, 1)) -> (logits (B, 1, V), caches); the
     caches are updated in place."""
     def decode_step(params, cache, tokens):
-        return model.decode_step(params, cache, tokens)
+        with mesh_scope():
+            return model.decode_step(params, cache, tokens)
 
     return decode_step

@@ -115,7 +115,8 @@ class EncDecModel(Z.Model):
         recomputed in the backward pass (the reference's
         ``jax.checkpoint``)."""
         cfg = self.cfg
-        x = src_embeds.to(cfg.compute_dtype) @ p["io"]["frontend_proj"]
+        x = L.shard_batch(src_embeds.to(cfg.compute_dtype)
+                          @ p["io"]["frontend_proj"])
 
         def layer(u, h):
             return _enc_layer(T._unit_slice(p["enc"], u), h, cfg)
@@ -132,7 +133,7 @@ class EncDecModel(Z.Model):
         None without it); under ``remat`` (no caches) each layer, its
         cross K/V included, is recomputed in the backward pass."""
         cfg = self.cfg
-        x = Z.embed_tokens(p["io"], tokens, cfg)
+        x = L.shard_batch(Z.embed_tokens(p["io"], tokens, cfg))
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device,
                                  dtype=torch.int32).expand(b, s)
@@ -192,7 +193,7 @@ class EncDecModel(Z.Model):
         place)."""
         cfg = self.cfg
         p = unflatten(as_params(params))
-        x = Z.embed_tokens(p["io"], tokens, cfg)
+        x = L.shard_batch(Z.embed_tokens(p["io"], tokens, cfg))
         for u in range(cfg.num_layers):
             x = _dec_layer_decode(T._unit_slice(p["dec"], u), x,
                                   T._unit_slice(caches["self"], u),

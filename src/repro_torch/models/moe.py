@@ -98,10 +98,10 @@ def route(p, x, cfg: ModelConfig) -> Routing:
     xf = x.reshape(n_tok, d)
     pad = n_grp * gs - n_tok
     if pad:
-        xf = F.pad(xf, (0, 0, 0, pad))
+        xf = L.along_dim(F.pad, xf, 0, pad=(0, 0, 0, pad))
     xg = xf.reshape(n_grp, gs, d)
 
-    logits = (xg @ p["router"].to(xg.dtype)).to(torch.float32)   # (G,S,E)
+    logits = L.dense(xg, p["router"].to(xg.dtype)).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate, expert = top_k(probs, m.top_k)                          # (G,S,K)
     gate = gate / (torch.sum(gate, dim=-1, keepdim=True) + 1e-9)
@@ -112,6 +112,57 @@ def route(p, x, cfg: ModelConfig) -> Routing:
     pos = queue.reshape(onehot.shape).gather(-1, expert[..., None])[..., 0] - 1
     cap = _capacity(m, gs)
     return Routing(xg, probs, gate, expert, pos, pos < cap, cap, n_tok)
+
+
+def _expert_ffn(dispatch, combine, xg, w_gate, w_up, w_down):
+    """The experts' SwiGLU on their queues, combined back to the tokens:
+    dispatch / combine (G,S,E,C), xg (G,S,D), weights (E,D,F) / (E,F,D)
+    -> (G,S,D)."""
+    xe = torch.einsum("gsec,gsd->egcd", dispatch, xg)             # (E,G,C,D)
+    h = torch.einsum("egcd,edf->egcf", xe, w_gate)
+    u = torch.einsum("egcd,edf->egcf", xe, w_up)
+    ye = torch.einsum("egcf,efd->egcd", F.silu(h) * u, w_down)
+    return torch.einsum("gsec,egcd->gsd", combine, ye)
+
+
+def _expert_parallel(dispatch, combine, xg, w_gate, w_up, w_down):
+    """``_expert_ffn``; under a mesh, expert parallel on each rank's
+    share: the groups keep their batch split (the tokens replicated over
+    the expert split), each rank runs its own experts on their queues
+    (the weights gathered over any other split: FSDP), and the combine
+    is a ``Partial`` sum over the expert split. Nothing moves the tokens
+    (no all-to-all)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(w_gate, DTensor):
+        return _expert_ffn(dispatch, combine, xg, w_gate, w_up, w_down)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = w_gate.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    dispatch, combine, xg = (t if isinstance(t, DTensor) else
+                             DTensor.from_local(t, mesh, rep, run_check=False)
+                             for t in (dispatch, combine, xg))
+    ep = [i for i, pl in enumerate(w_gate.placements) if pl.is_shard(0)]
+    tp = tuple(Replicate() if i in ep or not (pl.is_shard(0))
+               else pl for i, pl in enumerate(xg.placements))
+    wp = tuple(Shard(0) if i in ep else Replicate() for i in range(mesh.ndim))
+    tg = tuple(Partial() if i in ep else pl for i, pl in enumerate(tp))
+    wg = tuple(Shard(0) if i in ep else Partial() if tp[i].is_shard()
+               else Replicate() for i in range(mesh.ndim))
+    op = tuple(Partial() if i in ep else pl for i, pl in enumerate(tp))
+    e_loc = w_gate.shape[0] // math.prod(mesh.shape[i] for i in ep)
+    lo = L._shard_index(mesh, ep) * e_loc
+
+    def local(d, c, x, wg_, wu_, wd_):
+        cut = slice(lo, lo + e_loc)
+        return _expert_ffn(d[:, :, cut], c[:, :, cut], x, wg_, wu_, wd_)
+
+    args = [L.redistribute_at("experts", t, pl) for t, pl in
+            ((dispatch, tp), (combine, tp), (xg, tp), (w_gate, wp),
+             (w_up, wp), (w_down, wp))]
+    return local_map(local, out_placements=list(op),
+                     in_placements=(tp, tp, tp, wp, wp, wp),
+                     in_grad_placements=(tg, tg, tg, wg, wg, wg),
+                     device_mesh=mesh)(*args)
 
 
 def moe_apply(p, x, cfg: ModelConfig):
@@ -129,12 +180,9 @@ def moe_apply(p, x, cfg: ModelConfig):
     combine = combine.scatter_add(2, cell, weight).reshape(g, gs, e, cap)
     dispatch = (combine > 0).to(dt)
 
-    xe = torch.einsum("gsec,gsd->egcd", dispatch, r.xg)           # (E,G,C,D)
-    h = torch.einsum("egcd,edf->egcf", xe, p["expert_gate"].to(dt))
-    u = torch.einsum("egcd,edf->egcf", xe, p["expert_up"].to(dt))
-    ye = torch.einsum("egcf,efd->egcd", F.silu(h) * u,
-                      p["expert_down"].to(dt))
-    y = torch.einsum("gsec,egcd->gsd", combine, ye)               # (G,S,D)
+    y = _expert_parallel(dispatch, combine, r.xg,
+                         p["expert_gate"].to(dt), p["expert_up"].to(dt),
+                         p["expert_down"].to(dt))                 # (G,S,D)
 
     y = y.reshape(g * gs, d)[:r.n_tok].reshape(b, s, d)
     if m.num_shared_experts:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models.layers import _normal, _uniform, dense_init
 from repro_torch.models.ssm import _store, causal_dwconv, causal_dwconv_step
 
@@ -61,8 +62,9 @@ def rglru_scan(a, bx):
     s = a.shape[1]
     shift = 1
     while shift < s:
-        b_prev = F.pad(bx[:, :-shift], (0, 0, shift, 0))
-        a_prev = F.pad(a[:, :-shift], (0, 0, shift, 0), value=1.0)
+        b_prev = L.along_dim(F.pad, bx[:, :-shift], 1, pad=(0, 0, shift, 0))
+        a_prev = L.along_dim(F.pad, a[:, :-shift], 1, pad=(0, 0, shift, 0),
+                             value=1.0)
         bx = a * b_prev + bx
         a = a * a_prev
         shift *= 2

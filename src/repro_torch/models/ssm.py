@@ -26,7 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _normal, dense_init, gelu
+from repro_torch.models.layers import (_normal, along_dim, dense_init,
+                                      elementwise, gelu, redistribute_at,
+                                      shard_batch)
 
 # ---------------------------------------------------------------------------
 # causal depthwise conv (the width-4 prenet of the recurrent blocks)
@@ -37,7 +39,7 @@ def causal_dwconv(x, w):
     """x: (B, S, D); w: (W, D) depthwise causal conv, the taps added in
     the reference's order."""
     width, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, width - 1, 0))
+    xp = along_dim(F.pad, x, 1, pad=(0, 0, width - 1, 0))
     out = torch.zeros_like(x)
     for i in range(width):
         out = out + xp[:, i:i + s] * w[i]
@@ -100,7 +102,7 @@ def _mlstm_gates(p, x_conv):
     """The fp32 log input and log forget gates from the conv branch."""
     xf = x_conv.to(torch.float32)
     li = xf @ p["w_i"] + p["b_i"]
-    lf = F.logsigmoid(xf @ p["w_f"] + p["b_f"])
+    lf = elementwise(F.logsigmoid, xf @ p["w_f"] + p["b_f"])
     return li, lf
 
 
@@ -196,6 +198,70 @@ def mlstm_chunkwise(q, k, v, li, lf, chunk: int, state=None):
     return torch.cat(outs, dim=1)[:, :s0], (C, n, m)
 
 
+def _per_head(fn, args, head_dims, out_head_dims):
+    """``fn(*args)`` (tensors whose dim 0 is the batch and ``head_dims``
+    their head dims; flat outputs with ``out_head_dims``) for DTensors,
+    on each rank's share: every (batch, head) of the mLSTM is
+    independent, so the batch and head splits of ``args[0]`` are kept
+    and any other split gathered (``mlstm``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = args[0].device_mesh
+    keep = ["b" if pl.is_shard(0) else "h" if pl.is_shard(head_dims[0])
+            else None for pl in args[0].placements]
+
+    def placed(hd):
+        return tuple(Shard(0) if k == "b" else Shard(hd) if k == "h"
+                     else Replicate() for k in keep)
+
+    rep = [Replicate()] * mesh.ndim
+    args = [redistribute_at("mlstm", a if isinstance(a, DTensor) else
+                            DTensor.from_local(a, mesh, rep, run_check=False),
+                            placed(hd)) for a, hd in zip(args, head_dims)]
+    return local_map(fn, out_placements=tuple(list(placed(hd))
+                                              for hd in out_head_dims),
+                     in_placements=tuple(placed(hd) for hd in head_dims),
+                     device_mesh=mesh)(*args)
+
+
+def _chunkwise(q, k, v, li, lf, chunk: int, state=None):
+    """``mlstm_chunkwise``; DTensors run it on each rank's (batch, head)
+    share (``_per_head``)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(q, DTensor):
+        return mlstm_chunkwise(q, k, v, li, lf, chunk, state)
+    if state is None:
+        b, _, nh, dh = q.shape
+        state = (torch.zeros((b, nh, dh, dh), dtype=torch.float32),
+                 torch.zeros((b, nh, dh), dtype=torch.float32),
+                 torch.full((b, nh), -1e30, dtype=torch.float32))
+        state = tuple(t.to(q.device) for t in state)
+
+    def local(ql, kl, vl, il, fl, C, n, m):
+        h, (C, n, m) = mlstm_chunkwise(ql, kl, vl, il, fl, chunk, (C, n, m))
+        return h, C, n, m
+
+    h, C, n, m = _per_head(local, (q, k, v, li, lf, *state),
+                           (2, 2, 2, 2, 2, 1, 1, 1), (2, 1, 1, 1))
+    return h, (C, n, m)
+
+
+def _step(q, k, v, li, lf, state):
+    """``mlstm_step``; DTensors run it on each rank's (batch, head) share
+    (``_per_head``)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(q, DTensor):
+        return mlstm_step(q, k, v, li, lf, state)
+
+    def local(ql, kl, vl, il, fl, C, n, m):
+        h, (C, n, m) = mlstm_step(ql, kl, vl, il, fl, (C, n, m))
+        return h, C, n, m
+
+    h, C, n, m = _per_head(local, (q, k, v, li, lf, *state),
+                           (1, 1, 1, 1, 1, 1, 1, 1), (1, 1, 1, 1))
+    return h, (C, n, m)
+
+
 def mlstm_step(q, k, v, li, lf, state):
     """One decode step: q, k, v (B, H, dh); li, lf (B, H) -> (h (B, H,
     dh), new state)."""
@@ -222,7 +288,7 @@ def mlstm_apply_full(p, x, cfg: ModelConfig, state=None):
     x_up, z_gate = up[..., :di], up[..., di:]
     x_conv = F.silu(causal_dwconv(x_up, p["conv_w"]))
     q, k, v, li, lf = _mlstm_heads(p, x_conv, x_up, cfg)
-    h, (C, n, m) = mlstm_chunkwise(q, k, v, li, lf, xc.chunk_size, state)
+    h, (C, n, m) = _chunkwise(q, k, v, li, lf, xc.chunk_size, state)
     h = _groupnorm_heads(h.reshape(x.shape[0], x.shape[1], di),
                          p["gn_scale"], cfg.num_heads)
     h = h + p["skip_scale"] * x_conv
@@ -252,8 +318,8 @@ def mlstm_apply_decode(p, x, cache, cfg: ModelConfig):
     k = (x_conv @ p["wk"]).reshape(b, h, dh) / math.sqrt(dh)
     v = (x_up @ p["wv"]).reshape(b, h, dh)
     li, lf = _mlstm_gates(p, x_conv)
-    hv, (C, n, m) = mlstm_step(q, k, v, li, lf,
-                               (cache["C"], cache["n"], cache["m"]))
+    hv, (C, n, m) = _step(q, k, v, li, lf,
+                          (cache["C"], cache["n"], cache["m"]))
     hv = _groupnorm_heads(hv.reshape(b, 1, di), p["gn_scale"], h)
     hv = hv + p["skip_scale"] * x_conv[:, None]
     out = (hv * F.silu(z_gate)[:, None]) @ p["w_down"]
@@ -309,7 +375,7 @@ def _slstm_cell(p, x_gates, hcnm, num_heads: int):
     z, li, f_raw, o_raw = g[0], g[1], g[2], g[3]
     z = torch.tanh(z)
     o = torch.sigmoid(o_raw)
-    lf = F.logsigmoid(f_raw)
+    lf = elementwise(F.logsigmoid, f_raw)
     m_new = torch.maximum(lf + m_prev, li)
     ip = torch.exp(li - m_new)
     fp = torch.exp(lf + m_prev - m_new)
@@ -337,11 +403,16 @@ def slstm_apply_full(p, x, cfg: ModelConfig, state=None):
         state = (zeros, zeros, zeros, torch.full((b, d), -1e30,
                                                  dtype=torch.float32,
                                                  device=x.device))
+    # keep the recurrent state batch-sharded under a mesh (the reference:
+    # a feature-sharded carry would all-reduce the block-diagonal
+    # recurrent product every step)
+    state = tuple(shard_batch(u) for u in state)
     # the recurrent weights in fp32 once, not once a step
     cell_p = {"r_blocks": p["r_blocks"].to(torch.float32)}
     hs = []
     for t in range(s):
         state = _slstm_cell(cell_p, x_gates[:, t], state, cfg.num_heads)
+        state = tuple(shard_batch(u) for u in state)
         hs.append(state[0])
     h = torch.stack(hs, dim=1).to(x.dtype)                   # (B,S,D)
     return _slstm_out(p, h, cfg), state

@@ -23,7 +23,9 @@ a recurrent block's state in place of an attention cache: {conv, h}
 
 An attention block is attention (GQA or MLA) followed by a dense MLP or
 an MoE layer; its aux loss (MoE's load balance, else 0) is summed over
-the stack in the reference's order. A ``rec`` block is the RG-LRU
+the stack in the reference's order. Under a mesh every residual sum is
+put back in the batch layout (``layers.shard_batch``): DTensor places
+each op by itself, where GSPMD propagates one layout through the step. A ``rec`` block is the RG-LRU
 followed by the MLP (``ln2`` + ``ffn``); an ``mlstm`` or ``slstm``
 block is its cell alone, with its own projections.
 """
@@ -32,6 +34,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -123,14 +126,14 @@ def _recurrent_full(p, x, cfg: ModelConfig, spec: BlockSpec):
     h = L.norm_apply(p["ln1"], x)
     if spec.kind == "rec":
         a, state = rg.rglru_apply_full(p["rec"], h, cfg)
-        x = x + a
+        x = L.shard_batch(x + a)
         f, _ = _ffn(p, L.norm_apply(p["ln2"], x), cfg, spec)
-        return x + f, state
+        return L.shard_batch(x + f), state
     if spec.kind == "mlstm":
         a, state = ssm.mlstm_apply_full(p["mlstm"], h, cfg)
-        return x + a, state
+        return L.shard_batch(x + a), state
     a, st = ssm.slstm_apply_full(p["slstm"], h, cfg)
-    return x + a, dict(zip("hcnm", st))
+    return L.shard_batch(x + a), dict(zip("hcnm", st))
 
 
 def block_apply_full(p, x, positions, cfg: ModelConfig, spec: BlockSpec,
@@ -152,7 +155,7 @@ def block_apply_full(p, x, positions, cfg: ModelConfig, spec: BlockSpec,
                                   window=spec.window)
     if cfg.post_norms:
         a = L.norm_apply(p["post1"], a)
-    x = x + a
+    x = L.shard_batch(x + a)
     f, aux = _ffn(p, L.norm_apply(p["ln2"], x), cfg, spec)
     if cfg.post_norms:
         f = L.norm_apply(p["post2"], f)
@@ -160,7 +163,7 @@ def block_apply_full(p, x, positions, cfg: ModelConfig, spec: BlockSpec,
     if s_buf is not None:
         cache = (L.mla_cache_from_full if cfg.mla
                  else L.attn_cache_from_full)(*kv, s_buf)
-    return x + f, cache, aux
+    return L.shard_batch(x + f), cache, aux
 
 
 def block_apply_decode(p, x, cache, cfg: ModelConfig, spec: BlockSpec):
@@ -168,15 +171,15 @@ def block_apply_decode(p, x, cache, cfg: ModelConfig, spec: BlockSpec):
     h = L.norm_apply(p["ln1"], x)
     if spec.kind == "rec":
         a, cache = rg.rglru_apply_decode(p["rec"], h, cache, cfg)
-        x = x + a
+        x = L.shard_batch(x + a)
         f, _ = _ffn(p, L.norm_apply(p["ln2"], x), cfg, spec)
-        return x + f, cache
+        return L.shard_batch(x + f), cache
     if spec.kind == "mlstm":
         a, cache = ssm.mlstm_apply_decode(p["mlstm"], h, cache, cfg)
-        return x + a, cache
+        return L.shard_batch(x + a), cache
     if spec.kind == "slstm":
         a, cache = ssm.slstm_apply_decode(p["slstm"], h, cache, cfg)
-        return x + a, cache
+        return L.shard_batch(x + a), cache
     if cfg.mla:
         a, cache = L.mla_apply_decode(p["attn"], h, cache, cfg)
     else:
@@ -184,11 +187,11 @@ def block_apply_decode(p, x, cache, cfg: ModelConfig, spec: BlockSpec):
                                        window=spec.window)
     if cfg.post_norms:
         a = L.norm_apply(p["post1"], a)
-    x = x + a
+    x = L.shard_batch(x + a)
     f, _ = _ffn(p, L.norm_apply(p["ln2"], x), cfg, spec)
     if cfg.post_norms:
         f = L.norm_apply(p["post2"], f)
-    return x + f, cache
+    return L.shard_batch(x + f), cache
 
 
 def _buf_len(cfg: ModelConfig, spec: BlockSpec, ctx_len: int,
@@ -232,6 +235,12 @@ def _stack_units(make, n_units: int):
     preallocated tensors (peak memory: the stack plus one unit; one unit
     is viewed with a new axis, not copied)."""
     def alloc(t):
+        if isinstance(t, DTensor):       # a mesh's cache: split as t is
+            local = t.to_local()
+            return DTensor.from_local(
+                local.new_empty((n_units,) + tuple(local.shape)),
+                t.device_mesh, [Shard(p.dim + 1) if p.is_shard() else p
+                                for p in t.placements], run_check=False)
         return t.new_empty((n_units,) + tuple(t.shape))
 
     def put(dst, src, u):

@@ -58,11 +58,11 @@ def _ce_chunk_size(batch: int, vocab: int, seq: int) -> int:
 
 def _ce_chunk(xc, w_unembed, tc, mc, softcap):
     """One chunk's (sum of (lse - ll) * mask, sum of mask) in fp32."""
-    logits = (xc @ w_unembed).to(torch.float32)
+    logits = L.dense(xc, w_unembed).to(torch.float32)
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
+    ll = L.take_along_last(logits, tc)
     return torch.sum((lse - ll) * mc), torch.sum(mc)
 
 
@@ -114,9 +114,8 @@ def io_init(gen, cfg: ModelConfig, device):
 def embed_tokens(p, tokens, cfg: ModelConfig, positions=None):
     """Token embedding (times sqrt(d) under ``embed_scale``) plus the
     learned position of each column, or of ``positions`` (decode)."""
-    b, s = tokens.shape
-    x = torch.index_select(p["embed"], 0, tokens.reshape(-1))
-    x = x.reshape(b, s, -1).to(cfg.compute_dtype)
+    s = tokens.shape[1]
+    x = L.lookup_rows(p["embed"], tokens).to(cfg.compute_dtype)
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     if cfg.learned_pos_emb:
@@ -131,7 +130,7 @@ def unembed_matrix(p, cfg: ModelConfig):
 
 
 def logits_fn(p, x, cfg: ModelConfig):
-    logits = (x @ unembed_matrix(p, cfg)).to(torch.float32)
+    logits = L.dense(x, unembed_matrix(p, cfg)).to(torch.float32)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -187,9 +186,10 @@ class Model:
         p = unflatten(as_params(params))
         x = embed_tokens(p["io"], batch["tokens"], cfg)
         if cfg.frontend is not None and "patch_embeds" in batch:
-            patches = (batch["patch_embeds"].to(cfg.compute_dtype)
-                       @ p["io"]["frontend_proj"])
+            patches = L.dense(batch["patch_embeds"].to(cfg.compute_dtype),
+                              p["io"]["frontend_proj"])
             x = torch.cat([patches, x], dim=1)
+        x = L.shard_batch(x)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device,
                                  dtype=torch.int32).expand(b, s)
@@ -234,6 +234,7 @@ class Model:
         p = unflatten(as_params(params))
         x = embed_tokens(p["io"], tokens, cfg,
                          positions=_decode_positions(caches))
+        x = L.shard_batch(x)
         x, caches = T.stack_apply_decode(p["stack"], x, caches, cfg)
         x = L.norm_apply(p["io"]["final_norm"], x)
         return logits_fn(p["io"], x, cfg), caches

@@ -59,15 +59,17 @@ def _in_place(piece_update: Callable, tick: Optional[Callable] = None
             tick(state)
         if mask is not None:
             _own_buffers(grads)
+        local_state = _local(state)
         for k in list(grads):
             g_all, p_all = grads.pop(k), params[k]
             m_all = None if mask is None else mask[k]
+            g_all, p_all, m_all = _on_shards(g_all, p_all, m_all)
             for rows in _pieces(p_all):
                 g, p = g_all[rows], p_all[rows]
                 m = m_all if m_all is None or m_all.ndim == 0 else m_all[rows]
                 if m is not None:
                     g.mul_(m.to(g.dtype))
-                u = piece_update(state, k, rows, g, p)
+                u = piece_update(local_state, k, rows, g, p)
                 if m is not None:
                     u = u * m.to(u.dtype)
                 p.add_(u.to(p.dtype))
@@ -75,6 +77,38 @@ def _in_place(piece_update: Callable, tick: Optional[Callable] = None
         return params, state
 
     return update_
+
+
+def _local(tree):
+    """A state tree with each DTensor replaced by its local shard (same
+    storage: writes land in the DTensor)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, DTensor):
+        return tree.to_local()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_local(v) for v in tree))
+    if isinstance(tree, dict):
+        return {k: _local(v) for k, v in tree.items()}
+    return tree
+
+
+def _on_shards(g, p, m):
+    """A mesh's step updates each rank's shard in place: a DTensor
+    parameter's gradient is redistributed to the parameter's placements
+    (a ``Partial`` gradient reduced, a replicated one sliced), and the
+    update runs on the local shards of gradient, parameter and mask
+    (the elementwise arithmetic is the same on every shard)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(p, DTensor):
+        return g, p, m
+    if g.placements != p.placements:
+        g = g.redistribute(p.device_mesh, p.placements)
+    if isinstance(m, DTensor):
+        if m.ndim and m.placements != p.placements:
+            raise ValueError("a mask under a mesh must be split as its "
+                             "parameter is")
+        m = m.to_local()
+    return g.to_local(), p.to_local(), m
 
 
 def _own_buffers(grads: Tensors) -> None:

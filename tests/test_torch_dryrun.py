@@ -194,6 +194,46 @@ def test_full_width_record_allocates_nothing(tmp_path):
     assert not rec["memory"]["fits_h100_80gb"]
 
 
+def test_full_width_mesh_records_allocate_nothing(tmp_path):
+    """Gemma2-9B at full width, each input shape on rank 0 of both
+    production meshes (256 and 512 cards), traced in a subprocess held
+    to 8 GiB of address space: every record ok, a rank's arguments its
+    share of the parameters (and the state, batch or caches), its
+    products its share of the model's (at most a few times the model
+    FLOPs a device needs: recompute, attention), collectives priced."""
+    code = (
+        "import resource, sys\n"
+        "resource.setrlimit(resource.RLIMIT_AS, (8 << 30, 8 << 30))\n"
+        "from repro_torch.launch import dryrun\n"
+        "for mesh in ('single', 'multi'):\n"
+        "    for shape in ('train_4k', 'prefill_32k', 'decode_32k',\n"
+        "                  'long_500k'):\n"
+        "        rec = dryrun.run_one('gemma2-9b', shape, mesh=mesh,\n"
+        "                             out_dir=sys.argv[1])\n"
+        "        assert rec['status'] == 'ok', rec.get('error')\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("REPRO_MESH_OVERRIDE", None)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         env=env, capture_output=True, text=True,
+                         timeout=900)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    n_params = build(get_config("gemma2-9b")).param_count()["total"]
+    for name, n in (("h100x256", 256), ("h100x512", 512)):
+        for shape in INPUT_SHAPES:
+            with open(tmp_path / f"gemma2-9b__{shape}__{name}.json") as f:
+                rec = json.load(f)
+            m, r = rec["memory"], rec["roofline"]
+            assert rec["n_chips"] == n and rec["layers"] == 42
+            assert m["argument_size_in_bytes"] >= 2 * n_params / n
+            assert m["per_device_total_gb"] * 1e9 < 80e9, (name, shape)
+            assert r["collective_bytes_per_device"] > 0
+            assert r["t_collective_s"] == pytest.approx(
+                r["collective_bytes_per_device"] / mesh.COLLECTIVE_BW)
+            if INPUT_SHAPES[shape].kind != "decode":
+                assert 1.0 < r["hlo_flops_per_device"] \
+                    / r["model_flops_per_device"] < 3.0, (name, shape)
+
+
 def test_flash_pairs():
     """The flash stand-in's work: the pairs a causal, windowed or full
     mask admits (top-left aligned, as the kernel)."""
@@ -230,13 +270,35 @@ def test_specs_match_the_reference(arch, shape):
             name
 
 
-def test_mesh():
+def test_mesh(monkeypatch, tmp_path):
+    """The production meshes are ported: ``make_mesh`` builds them (over a
+    fake group, gone after ``use_mesh``), the override resizes them, the
+    cluster's rates are the datasheet's, and ``dryrun --mesh`` writes
+    their records."""
+    import torch.distributed as dist
+    monkeypatch.delenv("REPRO_MESH_OVERRIDE", raising=False)
     assert mesh.make_mesh() == mesh.make_mesh("card") == 1
     assert (mesh.PEAK_FLOPS_BF16, mesh.HBM_BW) == (989e12, 3.35e12)
-    for name in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="item 13c"):
-            mesh.make_mesh(name)
-        with pytest.raises(NotImplementedError, match="item 13c"):
-            dryrun.main(["--arch", "gemma2-9b", "--mesh", name])
+    assert (mesh.NVLINK_BW, mesh.IB_BW) == (450e9, 50e9)
+    assert mesh.COLLECTIVE_BW == mesh.IB_BW
+    for name, shape, axes in (("single", (16, 16), ("data", "model")),
+                              ("multi", (2, 16, 16),
+                               ("pod", "data", "model"))):
+        with mesh.use_mesh(name, "cpu") as m:
+            assert tuple(m.shape) == shape
+            assert tuple(m.mesh_dim_names) == axes
+        assert not dist.is_initialized()
+        assert dryrun.mesh_name(name) == f"h100x{np.prod(shape)}"
+    monkeypatch.setenv("REPRO_MESH_OVERRIDE", "2,4")
+    assert mesh.mesh_layout("multi") == ((2, 4), ("data", "model"))
+    monkeypatch.setattr(dryrun, "get_config", get_smoke_config)
+    monkeypatch.setitem(dryrun.INPUT_SHAPES, "decode_32k",
+                        SMOKE_SHAPES["decode_32k"])
+    dryrun.main(["--arch", "gemma2-9b", "--shape", "decode_32k", "--mesh",
+                 "both", "--recipe", "tp_serve", "--out", str(tmp_path)])
+    with open(tmp_path / "gemma2-9b__decode_32k__h100x8__tp_serve.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok" and rec["recipe"] == "tp_serve"
+    assert rec["n_chips"] == 8
     with pytest.raises(ValueError):
         mesh.make_mesh("pod")
