@@ -1,0 +1,13 @@
+"""The train step's share of the card's bf16 peak: the model FLOPs of
+the traced steps (``counts.train_flops``: top-2 of 16 experts, causal
+pairs, no recomputation, no gradient below the lowest trainable layer)
+over the traced window times 989 TFLOP/s."""
+from portbench import counts
+
+
+def read(rec):
+    tr = rec.get("trace")
+    flops = rec["counts"].get("model_flops", 0)
+    if not tr or not flops or tr["window_s"] <= 0 or not tr["ops"]:
+        return None
+    return 100.0 * flops / (tr["window_s"] * counts.PEAK_BF16)
