@@ -1,0 +1,10 @@
+"""The gradient accumulator's share of the card's busy time: the device
+seconds between the CUDA events at the ends of the program's
+``train.accumulate`` spans (``launch.steps``: the fp32 zeros, the adds
+after each microbatch, the scale), summed over the traced window, over
+its busy seconds (``spans.device_share``)."""
+from portbench import spans
+
+
+def read(rec):
+    return spans.device_share(rec, "train.accumulate")

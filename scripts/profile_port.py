@@ -15,7 +15,8 @@ Prints JSON lines:
 - ``profile``: one client's LocalTrain at the given knobs (5 local
   steps): wall time per microbatch without the profiler, per step part
   (grad, masked AdamW, the wire round trip) with a synchronize around
-  each, and the device's busy share and top kernels under the profiler.
+  each, and the device time, launches and top kernels under the
+  profiler.
 - ``masked_fold``: one full-width round's masked-sum fold (6 clients x
   1,900,800 uint64): the device time under the profiler of the uint64
   entry (``masked_sum_u64``, the main path's) and of the limb entry
@@ -34,12 +35,6 @@ Prints JSON lines:
   share of the bound (``chip_smoke.flash_bound_ms``) in the device time,
   and at Sq >= 4,096 the SM clock and power draw right after each
   window.
-- ``engine_round``: ``--engine-rounds`` CAFL-L rounds of
-  ``FederatedEngine`` on the card with each aggregator ("sync", then
-  "masked"), each round split at the engine's own callback hooks (with a
-  synchronize at each): eval, LocalTrain plus aggregation, accounting;
-  the aggregator's ``submit`` / ``flush`` time is taken out of the
-  middle part as ``aggregate_s``.
 - ``train_split``: one full-width train step (``make_train_step``) of
   Gemma2-9B, Phi-3.5-MoE, RecurrentGemma-2B and SeamlessM4T at
   ``chip_smoke.py``'s train setting (``train_setting``: depth cut to
@@ -52,13 +47,16 @@ Prints JSON lines:
   clients) at the given knobs with each executor, ``sequential`` then
   ``batched`` (same-knob clients stacked under ``torch.func.vmap``):
   host-clock seconds per round over 3 rounds after a warm-up one, and
-  under the profiler the device's busy share, the kernel launches per
-  client microbatch and the top kernels.
+  under the profiler the device time, the kernel launches per client
+  microbatch and the top kernels.
 
 The default knobs are those ``chip_smoke.py``'s second round runs at
 (q = 2 from the comm dual). ``chip_smoke.py`` checks the port; this
-script only measures it. Needs one card and the CUDA toolkit; imports
-neither JAX nor the JAX package.
+script only measures it. Where a round's or a step's idle time goes is
+the program's own spans' to say (``repro_torch.telemetry``, read by the
+benchmark's ``--trace 1`` readers and ``portbench.tools.span_sums``).
+Needs one card and the CUDA toolkit; imports neither JAX nor the JAX
+package.
 """
 from __future__ import annotations
 
@@ -208,70 +206,6 @@ def masked_fold(dev) -> dict:
             "library_sum_device_us": library_device_us, **steps}
 
 
-def engine_rounds(dev, rounds: int) -> list:
-    """CAFL-L through ``FederatedEngine`` with each aggregator, each
-    round split at the engine's callback hooks."""
-    from repro_torch.configs import get_config, get_fl_config
-    from repro_torch.data import load_corpus
-    from repro_torch.fl import FederatedEngine, RoundCallback
-    from repro_torch.models import build
-
-    class PhaseTimer(RoundCallback):
-        def __init__(self):
-            self.rows, self.row, self.t = [], {}, {}
-
-        def on_round_start(self, engine, rnd):
-            self.row = {"round": rnd, "aggregate_s": 0.0}
-            self.t["start"] = synced()
-
-        def on_round_composed(self, engine, plan):
-            self.t["composed"] = synced()
-            self.row["eval_s"] = self.t["composed"] - self.t["start"]
-
-        def on_server_update(self, engine, update):
-            self.t["updated"] = synced()
-            self.row["train_and_aggregate_s"] = (self.t["updated"]
-                                                 - self.t["composed"])
-
-        def on_round_end(self, engine, record):
-            end = synced()
-            self.row["accounting_s"] = end - self.t["updated"]
-            self.row["round_s"] = end - self.t["start"]
-            self.rows.append(self.row)
-
-    def timed(fn, timer):
-        def run(*args):
-            t0 = synced()
-            out = fn(*args)
-            timer.row["aggregate_s"] += synced() - t0
-            return out
-        return run
-
-    ds = load_corpus()
-    cfg = get_config("charlm-shakespeare")
-    if cfg.vocab_size < ds.vocab_size:
-        cfg = cfg.replace(vocab_size=ds.vocab_size)
-    fl = get_fl_config().replace(rounds=rounds)
-    out = []
-    for aggregator in ("sync", "masked"):
-        timer = PhaseTimer()
-        engine = FederatedEngine(build(cfg), fl, ds, strategy="cafl",
-                                 aggregator=aggregator, callbacks=[timer],
-                                 device=dev)
-        agg = engine.aggregator
-        agg.submit, agg.flush = timed(agg.submit, timer), timed(agg.flush,
-                                                                timer)
-        result = engine.run()
-        for row, rec in zip(timer.rows, result.history):
-            row = {"phase": "engine_round", "aggregator": aggregator,
-                   "knobs": rec.knobs, **row}
-            row["local_train_s"] = (row["train_and_aggregate_s"]
-                                    - row["aggregate_s"])
-            emit(row)
-            out.append(row)
-    return out
-
-
 def profile_client(model, fl, ds, params, kn) -> dict:
     from repro_torch.core import calibrate
     from repro_torch.core.client import (ClientRunner, apply_masked_update,
@@ -311,7 +245,6 @@ def profile_client(model, fl, ds, params, kn) -> dict:
             "grad_ms": t_grad * 1e3, "adamw_ms": t_adam * 1e3,
             "finalize_delta_ms": t_wire * 1e3,
             "profiled_client_s": prof_wall, "device_busy_s": busy_us / 1e6,
-            "device_busy_share": busy_us / 1e6 / prof_wall,
             "kernel_launches": sum(n for n, _ in kernels.values()),
             "top_kernels": [{"name": name[:80], "launches": n, "us": t}
                             for name, (n, t) in top]}
@@ -357,7 +290,6 @@ def executor_rounds(model, fl, ds, params, kn, reps: int = 3) -> list:
                "per_microbatch_ms": min(walls) / micro * 1e3,
                "profiled_round_s": prof_wall,
                "device_busy_s": busy_us / 1e6,
-               "device_busy_share": busy_us / 1e6 / prof_wall,
                "kernel_launches": launches,
                "launches_per_microbatch": launches / micro,
                "top_kernels": [{"name": n[:80], "launches": c, "us": t}
@@ -421,7 +353,6 @@ def main(argv=None) -> int:
     ap.add_argument("--q", type=int, default=2)
     ap.add_argument("--grad-accum", type=int, default=2)
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--engine-rounds", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
@@ -438,7 +369,6 @@ def main(argv=None) -> int:
     emit(profile_client(model, fl, ds, params, kn))
     emit(masked_fold(dev))
     emit({"phase": "flash", "times": flash_times(dev)})
-    engine_rounds(dev, args.engine_rounds)
     train_split(dev)
     # last: its sequential round traces ~89k kernels
     executor_rounds(model, fl, ds, params, kn)

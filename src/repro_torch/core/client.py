@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import compression, freezing
 from repro_torch.core.policy import Knobs
@@ -126,30 +127,36 @@ class ClientRunner:
         w = params
         losses = []
         for _ in range(knobs.s):
-            grads_sum = None
-            for _ in range(knobs.grad_accum):
-                batch = self.sample_batch(client_id, knobs.b)
-                loss, grads = self.loss_and_grads(w, batch)
-                losses.append(loss)
-                if grads_sum is None:
-                    grads_sum = grads
-                else:
-                    grads_sum = {k: a + grads[k] for k, a in grads_sum.items()}
-            if knobs.grad_accum > 1:
-                # 0-d f32 divisor (small ints are exact in f32)
-                accum = torch.tensor(np.float32(knobs.grad_accum),
-                                     device=self.device)
-                grads_sum = {k: g / accum for k, g in grads_sum.items()}
-            w, opt_state = apply_masked_update_(self.opt, w, opt_state,
-                                                grads_sum, mask)
+            # the step's microbatches, drawn in the order they are used
+            with telemetry.span("fl.draw"):
+                batches = [self.sample_batch(client_id, knobs.b)
+                           for _ in range(knobs.grad_accum)]
+            with telemetry.span("fl.step"):
+                grads_sum = None
+                for batch in batches:
+                    loss, grads = self.loss_and_grads(w, batch)
+                    losses.append(loss)
+                    if grads_sum is None:
+                        grads_sum = grads
+                    else:
+                        grads_sum = {k: a + grads[k]
+                                     for k, a in grads_sum.items()}
+                if knobs.grad_accum > 1:
+                    # 0-d f32 divisor (small ints are exact in f32)
+                    accum = torch.tensor(np.float32(knobs.grad_accum),
+                                         device=self.device)
+                    grads_sum = {k: g / accum for k, g in grads_sum.items()}
+                w, opt_state = apply_masked_update_(self.opt, w, opt_state,
+                                                    grads_sum, mask)
 
         topk = self.fl.wire_topk
-        delta = finalize_delta(w, params, mask, knobs.q, topk=topk)
+        with telemetry.span("fl.wire"):
+            delta = finalize_delta(w, params, mask, knobs.q, topk=topk)
+            wire_mb = _masked_wire_mb(delta, mask, knobs.q, topk=topk)
         train_loss = float(torch.mean(torch.stack(losses)))  # one sync/client
         return ClientResult(
             client_id=client_id, delta=delta, params_active=active,
-            train_loss=train_loss,
-            wire_mb_actual=_masked_wire_mb(delta, mask, knobs.q, topk=topk))
+            train_loss=train_loss, wire_mb_actual=wire_mb)
 
     def local_train(self, client_id: int, params: Any, knobs: Knobs
                     ) -> Tuple[Tensors, Dict[str, float], Dict[str, float]]:

@@ -40,6 +40,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.configs.base import FLConfig
 from repro_torch.constraints import ConstraintSet, paper_constraints
 from repro_torch.core import aggregation
@@ -243,192 +244,196 @@ class FederatedEngine:
             t0 = time.time()
             round_start = clock.now
             self._emit("on_round_start", t)
-            val_loss = evaluate(params)
+            # the round's own work (the hooks around it are the caller's)
+            with telemetry.span("fl.round"):
+                with telemetry.span("fl.eval"):
+                    val_loss = evaluate(params)
 
-            # --- round composition: gate, sample, deadline -------------
-            if wall:
-                roster = ([ci for ci in fleet if ci.client_id not in busy]
-                          if busy else fleet)
-            else:
-                # sorted: expiry must not depend on delivery order
-                for cid in sorted(c for c, due in busy_until.items()
-                                  if due < t):
-                    del busy_until[cid]
-                roster = ([ci for ci in fleet
-                           if ci.client_id not in busy_until]
-                          if busy_until else fleet)
-            avail, clients = dynamics.compose(
-                t, roster, rng, self.strategy.duals_snapshot())
-            base_knobs = self.strategy.configure_round(t, clients)
-            knobs = dynamics.adjust_knobs(clients, base_knobs)
-            surv_idx, drop_idx, times = dynamics.finish(t, clients, knobs,
-                                                        rng)
-            # the deadline in force during this round (a knob policy may
-            # move it in observe_round, for the next round)
-            deadline = getattr(dynamics.stragglers, "deadline", None)
-            # deadline-missers: late (the report still lands, if the
-            # aggregator takes it and the run is still going) or lost
-            late_idx: List[int] = []
-            lost_idx: List[int] = []
-            due_round: Dict[int, int] = {}
-            if wall:
-                for i in drop_idx:
-                    if agg.accepts_late and times and (
-                            horizon_seconds is None
-                            or round_start + times[i] <= horizon_seconds):
-                        late_idx.append(i)
-                    else:
-                        lost_idx.append(i)
-            else:
-                for i in drop_idx:
-                    delay = (dynamics.stragglers.late_rounds(times[i])
-                             if agg.accepts_late and times else None)
-                    if delay is not None and t + delay <= rounds:
-                        late_idx.append(i)
-                        due_round[i] = t + delay
-                    else:
-                        lost_idx.append(i)
-            survivors = [clients[i] for i in surv_idx]
-            plan = RoundPlan(
-                round=t,
-                available=tuple(ci.client_id for ci in avail),
-                sampled=tuple(ci.client_id for ci in clients),
-                survivors=tuple(ci.client_id for ci in survivors),
-                dropped=tuple(clients[i].client_id for i in drop_idx),
-                times=tuple(times),
-                late=tuple(clients[i].client_id for i in late_idx))
-            self._emit("on_round_composed", plan)
-            if lost_idx:
-                self.strategy.on_dropout([clients[i] for i in lost_idx])
-            agg.begin_round(t, clients)
-
-            # --- LocalTrain: survivors report now, late clients' reports
-            # are queued for when their clock lands ---------------------
-            exec_idx = list(surv_idx) + late_idx
-            outs = (executor.run_round(
-                params, [(clients[i], knobs[i]) for i in exec_idx])
-                if exec_idx else [])
-            reports = {
-                i: self._report(clients[i], knobs[i], base_knobs[i], o, t,
-                                times[i] if times else 0.0)
-                for i, o in zip(exec_idx, outs)}
-            if not wall:
-                for i in late_idx:
-                    pending.setdefault(due_round[i], []).append(reports[i])
-                    busy_until[clients[i].client_id] = due_round[i]
-
-            # --- deliver; the aggregator decides when reports become
-            # server updates ---------------------------------------------
-            base_dur = rtm.round_seconds(clients, knobs, times, surv_idx,
-                                         deadline)
-            if wall and base_dur <= 0.0:
-                raise ValueError(
-                    f"{type(rtm).__name__}.round_seconds returned "
-                    f"{base_dur!r}; wall-clock rounds need positive "
-                    f"durations")
-            applied: List[ServerUpdate] = []
-
-            def _apply(update, params):
-                params = aggregation.apply_delta(params, update.delta)
-                self.params = params
-                applied.append(update)
-                self._emit("on_server_update", update)
-                _release(update)
-                return params
-
-            if wall:
-                round_end_cap = round_start + base_dur
-                # earlier rounds' reports landing in this round's window,
-                # popped before this round's missers join the queue: a
-                # miss is always at least one round late
-                due = pending_q.pop_until(round_end_cap)
-                for i in late_idx:
-                    pending_q.push(round_start + times[i], reports[i])
-                    busy.add(clients[i].client_id)
-                events = [pending_q.stamp(
-                    round_start + (times[i] if times
-                                   else rtm.client_seconds(clients[i],
-                                                           knobs[i])),
-                    reports[i]) for i in surv_idx]
-                events = sorted(events + due, key=lambda e: e.sort_key())
-                arrived = []
-                inbox: List[ClientReport] = []
-                round_end = round_end_cap
-                cut = None
-                for k, ev in enumerate(events):
-                    rep = ev.report
-                    clock.advance_to(ev.arrival,
-                                     f"deliver:c{rep.client.client_id}")
-                    if rep.round_trained < t:
-                        arrived.append(rep)
-                    busy.discard(rep.client.client_id)
-                    rep.round_submitted = t
-                    rep.staleness = t - rep.round_trained
-                    inbox.append(rep)
-                    update = agg.submit(rep)
-                    if update is not None:
-                        params = _apply(update, params)
-                        if agg.applies_mid_round:
-                            # the buffer event ends this round; later
-                            # deliveries belong to the next round
-                            round_end = ev.arrival + server_cost
-                            cut = k + 1
-                            break
-                if cut is not None:
-                    for ev in events[cut:]:
-                        pending_q.push_event(ev)
-                        busy.add(ev.report.client.client_id)
+                # --- round composition: gate, sample, deadline -------------
+                if wall:
+                    roster = ([ci for ci in fleet if ci.client_id not in busy]
+                              if busy else fleet)
                 else:
+                    # sorted: expiry must not depend on delivery order
+                    for cid in sorted(c for c, due in busy_until.items()
+                                      if due < t):
+                        del busy_until[cid]
+                    roster = ([ci for ci in fleet
+                               if ci.client_id not in busy_until]
+                              if busy_until else fleet)
+                avail, clients = dynamics.compose(
+                    t, roster, rng, self.strategy.duals_snapshot())
+                base_knobs = self.strategy.configure_round(t, clients)
+                knobs = dynamics.adjust_knobs(clients, base_knobs)
+                surv_idx, drop_idx, times = dynamics.finish(t, clients, knobs,
+                                                            rng)
+                # the deadline in force during this round (a knob policy may
+                # move it in observe_round, for the next round)
+                deadline = getattr(dynamics.stragglers, "deadline", None)
+                # deadline-missers: late (the report still lands, if the
+                # aggregator takes it and the run is still going) or lost
+                late_idx: List[int] = []
+                lost_idx: List[int] = []
+                due_round: Dict[int, int] = {}
+                if wall:
+                    for i in drop_idx:
+                        if agg.accepts_late and times and (
+                                horizon_seconds is None
+                                or round_start + times[i] <= horizon_seconds):
+                            late_idx.append(i)
+                        else:
+                            lost_idx.append(i)
+                else:
+                    for i in drop_idx:
+                        delay = (dynamics.stragglers.late_rounds(times[i])
+                                 if agg.accepts_late and times else None)
+                        if delay is not None and t + delay <= rounds:
+                            late_idx.append(i)
+                            due_round[i] = t + delay
+                        else:
+                            lost_idx.append(i)
+                survivors = [clients[i] for i in surv_idx]
+                plan = RoundPlan(
+                    round=t,
+                    available=tuple(ci.client_id for ci in avail),
+                    sampled=tuple(ci.client_id for ci in clients),
+                    survivors=tuple(ci.client_id for ci in survivors),
+                    dropped=tuple(clients[i].client_id for i in drop_idx),
+                    times=tuple(times),
+                    late=tuple(clients[i].client_id for i in late_idx))
+                self._emit("on_round_composed", plan)
+                if lost_idx:
+                    self.strategy.on_dropout([clients[i] for i in lost_idx])
+                agg.begin_round(t, clients)
+
+                # --- LocalTrain: survivors report now, late clients' reports
+                # are queued for when their clock lands ---------------------
+                exec_idx = list(surv_idx) + late_idx
+                with telemetry.span("fl.localtrain"):
+                    outs = (executor.run_round(
+                        params, [(clients[i], knobs[i]) for i in exec_idx])
+                        if exec_idx else [])
+                reports = {
+                    i: self._report(clients[i], knobs[i], base_knobs[i], o, t,
+                                    times[i] if times else 0.0)
+                    for i, o in zip(exec_idx, outs)}
+                if not wall:
+                    for i in late_idx:
+                        pending.setdefault(due_round[i], []).append(reports[i])
+                        busy_until[clients[i].client_id] = due_round[i]
+
+                # --- deliver; the aggregator decides when reports become
+                # server updates ---------------------------------------------
+                base_dur = rtm.round_seconds(clients, knobs, times, surv_idx,
+                                             deadline)
+                if wall and base_dur <= 0.0:
+                    raise ValueError(
+                        f"{type(rtm).__name__}.round_seconds returned "
+                        f"{base_dur!r}; wall-clock rounds need positive "
+                        f"durations")
+                applied: List[ServerUpdate] = []
+
+                def _apply(update, params):
+                    params = aggregation.apply_delta(params, update.delta)
+                    self.params = params
+                    applied.append(update)
+                    self._emit("on_server_update", update)
+                    _release(update)
+                    return params
+
+                if wall:
+                    round_end_cap = round_start + base_dur
+                    # earlier rounds' reports landing in this round's window,
+                    # popped before this round's missers join the queue: a
+                    # miss is always at least one round late
+                    due = pending_q.pop_until(round_end_cap)
+                    for i in late_idx:
+                        pending_q.push(round_start + times[i], reports[i])
+                        busy.add(clients[i].client_id)
+                    events = [pending_q.stamp(
+                        round_start + (times[i] if times
+                                       else rtm.client_seconds(clients[i],
+                                                               knobs[i])),
+                        reports[i]) for i in surv_idx]
+                    events = sorted(events + due, key=lambda e: e.sort_key())
+                    arrived = []
+                    inbox: List[ClientReport] = []
+                    round_end = round_end_cap
+                    cut = None
+                    for k, ev in enumerate(events):
+                        rep = ev.report
+                        clock.advance_to(ev.arrival,
+                                         f"deliver:c{rep.client.client_id}")
+                        if rep.round_trained < t:
+                            arrived.append(rep)
+                        busy.discard(rep.client.client_id)
+                        rep.round_submitted = t
+                        rep.staleness = t - rep.round_trained
+                        inbox.append(rep)
+                        update = agg.submit(rep)
+                        if update is not None:
+                            params = _apply(update, params)
+                            if agg.applies_mid_round:
+                                # the buffer event ends this round; later
+                                # deliveries belong to the next round
+                                round_end = ev.arrival + server_cost
+                                cut = k + 1
+                                break
+                    if cut is not None:
+                        for ev in events[cut:]:
+                            pending_q.push_event(ev)
+                            busy.add(ev.report.client.client_id)
+                    else:
+                        update = agg.flush(t)
+                        if update is not None:
+                            params = _apply(update, params)
+                    clock.advance_to(round_end, f"round_end:{t}")
+                else:
+                    arrived = sorted(pending.pop(t, ()),
+                                     key=lambda r: (r.round_trained,
+                                                    r.arrival_time))
+                    inbox = arrived + [reports[i] for i in surv_idx]
+                    for rep in inbox:
+                        rep.round_submitted = t
+                        rep.staleness = t - rep.round_trained
+                        update = agg.submit(rep)
+                        if update is not None:
+                            params = _apply(update, params)
                     update = agg.flush(t)
                     if update is not None:
                         params = _apply(update, params)
-                clock.advance_to(round_end, f"round_end:{t}")
-            else:
-                arrived = sorted(pending.pop(t, ()),
-                                 key=lambda r: (r.round_trained,
-                                                r.arrival_time))
-                inbox = arrived + [reports[i] for i in surv_idx]
-                for rep in inbox:
-                    rep.round_submitted = t
-                    rep.staleness = t - rep.round_trained
-                    update = agg.submit(rep)
-                    if update is not None:
-                        params = _apply(update, params)
-                update = agg.flush(t)
-                if update is not None:
-                    params = _apply(update, params)
-                # accounting only in rounds mode: the barrier's duration
-                clock.advance_to(round_start + base_dur, f"round_end:{t}")
-            dynamics.settle(clients, base_knobs, knobs,
-                            list(surv_idx) + late_idx, lost_idx)
+                    # accounting only in rounds mode: the barrier's duration
+                    clock.advance_to(round_start + base_dur, f"round_end:{t}")
+                dynamics.settle(clients, base_knobs, knobs,
+                                list(surv_idx) + late_idx, lost_idx)
 
-            # --- constraint accounting over the reports delivered, in
-            # canonical order (the float means are a function of the
-            # report set); ``inbox`` keeps delivery order ---------------
-            stats = canonical_order(inbox)
-            usages = [cset.measure(rep) for rep in stats]
-            if stats:
-                usage = {n: float(np.mean([u[n] for u in usages]))
-                         for n in cset.names}
-                train_loss = float(np.mean([rep.train_loss
-                                            for rep in stats]))
-                wire_mb = float(np.mean([rep.wire_mb_actual
-                                         for rep in stats]))
-                energy = float(np.mean([rep.energy_true for rep in stats]))
-            else:               # everyone dropped / nobody reachable
-                usage = cset.zero_usage()
-                train_loss = wire_mb = energy = 0.0
-            ratios = cset.ratios(usage, fl.budgets)
-            duals_by_profile = self.strategy.update_state(
-                usages, [rep.client for rep in stats])
-            creports = self.strategy.constraint_reports()
-            if creports:
-                self._emit("on_dual_update", t, creports)
-            self.strategy.observe_round(plan, inbox, dynamics)
+                # --- constraint accounting over the reports delivered, in
+                # canonical order (the float means are a function of the
+                # report set); ``inbox`` keeps delivery order ---------------
+                stats = canonical_order(inbox)
+                usages = [cset.measure(rep) for rep in stats]
+                if stats:
+                    usage = {n: float(np.mean([u[n] for u in usages]))
+                             for n in cset.names}
+                    train_loss = float(np.mean([rep.train_loss
+                                                for rep in stats]))
+                    wire_mb = float(np.mean([rep.wire_mb_actual
+                                             for rep in stats]))
+                    energy = float(np.mean([rep.energy_true for rep in stats]))
+                else:               # everyone dropped / nobody reachable
+                    usage = cset.zero_usage()
+                    train_loss = wire_mb = energy = 0.0
+                ratios = cset.ratios(usage, fl.budgets)
+                duals_by_profile = self.strategy.update_state(
+                    usages, [rep.client for rep in stats])
+                creports = self.strategy.constraint_reports()
+                if creports:
+                    self._emit("on_dual_update", t, creports)
+                self.strategy.observe_round(plan, inbox, dynamics)
 
-            if self.device.type == "cuda":
-                # the round's seconds cover its device work too
-                torch.cuda.synchronize(self.device)
+                if self.device.type == "cuda":
+                    # the round's seconds cover its device work too
+                    torch.cuda.synchronize(self.device)
             duals_rec = _default_duals(duals_by_profile, cset.names)
             record = RoundRecord(
                 round=t, val_loss=val_loss,

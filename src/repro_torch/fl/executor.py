@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch import telemetry
 from repro_torch.core.client import (ClientResult, ClientRunner,
                                      _masked_wire_mb, apply_masked_update,
                                      finalize_delta)
@@ -123,9 +124,11 @@ class BatchedExecutor(ClientExecutor):
                      cids: Sequence[int]) -> Tuple[Tensors, List[float]]:
         """LocalTrain of one knob group -> (stacked weights (C, ...), the
         clients' mean train losses)."""
-        w, losses = self._train_stack(params, mask,
-                                      self._stack_batches(cids, kn),
-                                      kn.grad_accum)
+        with telemetry.span("fl.draw"):
+            batches = self._stack_batches(cids, kn)
+        with telemetry.span("fl.step"):
+            w, losses = self._train_stack(params, mask, batches,
+                                          kn.grad_accum)
         return w, losses.tolist()          # one host sync per group
 
     def run_round(self, params, assignments):
@@ -142,14 +145,15 @@ class BatchedExecutor(ClientExecutor):
             cids = [assignments[i][0].client_id for i in idxs]
             mask, active = runner.mask_for(params, kn.k)
             w, losses = self._train_group(params, mask, kn, cids)
-            for row, i in enumerate(idxs):
-                delta = finalize_delta({k: t[row] for k, t in w.items()},
-                                       params, mask, kn.q, topk=topk)
-                results[i] = ClientResult(
-                    client_id=cids[row], delta=delta, params_active=active,
-                    train_loss=losses[row],
-                    wire_mb_actual=_masked_wire_mb(delta, mask, kn.q,
-                                                   topk=topk))
+            with telemetry.span("fl.wire"):
+                for row, i in enumerate(idxs):
+                    delta = finalize_delta({k: t[row] for k, t in w.items()},
+                                           params, mask, kn.q, topk=topk)
+                    results[i] = ClientResult(
+                        client_id=cids[row], delta=delta,
+                        params_active=active, train_loss=losses[row],
+                        wire_mb_actual=_masked_wire_mb(delta, mask, kn.q,
+                                                       topk=topk))
         return results
 
 

@@ -17,6 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.configs.base import InputShape
 from repro_torch.models.convert import as_params
 from repro_torch.models.layers import active_mesh
@@ -74,27 +75,32 @@ def make_train_step(model: Model, optimizer: Optimizer,
             raise ValueError(f"batch does not split into {microbatches} "
                              "equal microbatches")
         split = {k: torch.chunk(v, microbatches) for k, v in batch.items()}
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=next(iter(params.values())).device)
-        gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for k, p in params.items()}
+        with telemetry.span("train.accumulate"):
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=next(iter(params.values())).device)
+            gsum = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device)
+                    for k, p in params.items()}
         for i in range(microbatches):
             loss, grads = grads_of(params, {k: c[i] for k, c in split.items()})
-            loss_sum = loss_sum + loss
-            for k, g in grads.items():
-                gsum[k].add_(g)
+            with telemetry.span("train.accumulate"):
+                loss_sum = loss_sum + loss
+                for k, g in grads.items():
+                    gsum[k].add_(g)
             del grads
         scale = 1.0 / microbatches
-        for g in gsum.values():
-            g.mul_(scale)
-        return loss_sum * scale, gsum
+        with telemetry.span("train.accumulate"):
+            for g in gsum.values():
+                g.mul_(scale)
+            return loss_sum * scale, gsum
 
     @torch.no_grad()
     def train_step(params, opt_state, batch, mask: Optional[Tensors] = None):
         params = as_params(params)
         with mesh_scope():
             loss, grads = accumulate(params, batch)
-            optimizer.update_(grads, opt_state, params, mask)
+            with telemetry.span("train.optimizer"):
+                optimizer.update_(grads, opt_state, params, mask)
         return params, opt_state, loss
 
     if not with_freezing_mask:
@@ -116,7 +122,7 @@ def make_prefill_step(model: Model, shape: InputShape,
     long = shape.name == "long_500k"
 
     def prefill_step(params, batch):
-        with mesh_scope():
+        with telemetry.span("serve.prefill"), mesh_scope():
             return model.prefill(params, batch, use_decode_window=long,
                                  max_new_tokens=max_new_tokens)
 

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
@@ -166,33 +167,42 @@ def _expert_parallel(dispatch, combine, xg, w_gate, w_up, w_down):
 
 
 def moe_apply(p, x, cfg: ModelConfig):
-    """x: (B, S, D) -> (B, S, D), aux loss (load balance, f32 scalar)."""
-    m = cfg.moe
-    b, s, d = x.shape
-    r = route(p, x, cfg)
-    g, gs, _ = r.xg.shape
-    e, cap, dt = m.num_experts, r.capacity, r.xg.dtype
-    # combine (G,S,E,C): each kept pair's gate (in the activations' dtype)
-    # at its (expert, slot); a dropped pair adds 0 at a clamped slot
-    cell = r.expert * cap + r.pos.clamp(max=cap - 1)
-    weight = r.gate.to(dt) * r.kept.to(dt)
-    combine = torch.zeros((g, gs, e * cap), dtype=dt, device=x.device)
-    combine = combine.scatter_add(2, cell, weight).reshape(g, gs, e, cap)
-    dispatch = (combine > 0).to(dt)
+    """x: (B, S, D) -> (B, S, D), aux loss (load balance, f32 scalar).
+    While a profiler runs: the span ``model.moe`` and the counters
+    ``moe.pairs_kept`` (real tokens' kept pairs, summed on the device)
+    and ``moe.slots`` (groups x experts x capacity)."""
+    with telemetry.span("model.moe"):
+        m = cfg.moe
+        b, s, d = x.shape
+        r = route(p, x, cfg)
+        g, gs, _ = r.xg.shape
+        e, cap, dt = m.num_experts, r.capacity, r.xg.dtype
+        if telemetry.enabled():
+            telemetry.count("moe.pairs_kept",
+                            r.kept.reshape(g * gs, -1)[:r.n_tok].sum())
+            telemetry.count("moe.slots", g * e * cap)
+        # combine (G,S,E,C): each kept pair's gate (in the activations' dtype)
+        # at its (expert, slot); a dropped pair adds 0 at a clamped slot
+        cell = r.expert * cap + r.pos.clamp(max=cap - 1)
+        weight = r.gate.to(dt) * r.kept.to(dt)
+        combine = torch.zeros((g, gs, e * cap), dtype=dt, device=x.device)
+        combine = combine.scatter_add(2, cell, weight).reshape(g, gs, e, cap)
+        dispatch = (combine > 0).to(dt)
 
-    y = _expert_parallel(dispatch, combine, r.xg,
-                         p["expert_gate"].to(dt), p["expert_up"].to(dt),
-                         p["expert_down"].to(dt))                 # (G,S,D)
+        y = _expert_parallel(dispatch, combine, r.xg,
+                             p["expert_gate"].to(dt), p["expert_up"].to(dt),
+                             p["expert_down"].to(dt))                 # (G,S,D)
 
-    y = y.reshape(g * gs, d)[:r.n_tok].reshape(b, s, d)
-    if m.num_shared_experts:
-        y = y + L.mlp_apply(p["shared"], x, cfg)
+        y = y.reshape(g * gs, d)[:r.n_tok].reshape(b, s, d)
+        if m.num_shared_experts:
+            y = y + L.mlp_apply(p["shared"], x, cfg)
 
-    density = torch.mean(F.one_hot(r.expert[..., 0], e).to(torch.float32),
-                         dim=1)                                   # (G,E)
-    density_proxy = torch.mean(r.probs, dim=1)                    # (G,E)
-    aux = torch.mean(density * density_proxy) * (e ** 2) * m.aux_loss_weight
-    return y, aux
+        density = torch.mean(F.one_hot(r.expert[..., 0], e).to(torch.float32),
+                             dim=1)                                   # (G,E)
+        density_proxy = torch.mean(r.probs, dim=1)                    # (G,E)
+        aux = (torch.mean(density * density_proxy) * (e ** 2)
+               * m.aux_loss_weight)
+        return y, aux
 
 
 def moe_param_count(cfg: ModelConfig) -> dict:
