@@ -2193,6 +2193,57 @@ def routing_log():
         moe.route = real
 
 
+@contextlib.contextmanager
+def routing_replay(logged):
+    """While open, every MoE layer's routing (in layer order, as
+    ``routing_log`` logs it) takes its real tokens' experts from
+    ``logged`` (one (T, K) tensor per layer call), its gates from its
+    own router's probabilities at those experts (renormalised as
+    ``route`` does), and its queue slots and kept flags anew from them.
+    Yields, as ``routing_log`` does, per call the (sorted) experts the
+    layer chose itself and the kept flags it ran with: a check of decode
+    against prefill runs the prefill on decode's routing, so that a
+    near-tie that bf16 rounding tips the other way (a routing flip)
+    does not part the logits, and the flips are still counted."""
+    from repro_torch.models import moe
+    real, calls = moe.route, []
+
+    def route(p, x, cfg):
+        r = real(p, x, cfg)
+        g, gs, k = r.expert.shape
+        n_exp = r.probs.shape[-1]
+        own = r.expert.reshape(-1, k)[:r.n_tok]
+        expert = r.expert.reshape(-1, k).clone()
+        expert[:r.n_tok] = logged[len(calls)]
+        expert = expert.reshape(g, gs, k)
+        gate = r.probs.gather(-1, expert)
+        gate = gate / (torch.sum(gate, dim=-1, keepdim=True) + 1e-9)
+        onehot = torch.nn.functional.one_hot(expert, n_exp).to(torch.int32)
+        queue = onehot.reshape(g, gs * k, -1).cumsum(1)
+        pos = queue.reshape(onehot.shape).gather(
+            -1, expert[..., None])[..., 0] - 1
+        kept = pos < r.capacity
+        calls.append((own.sort(-1).values, kept.reshape(-1, k)[:r.n_tok]))
+        return r._replace(gate=gate, expert=expert, pos=pos, kept=kept)
+
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = real
+
+
+def replayed(prompt_routes, decoded, n_moe: int, steps: int) -> list:
+    """Per MoE layer, the experts of the prompt's tokens (``routing_log``
+    of the prefill that built decode's caches) and of the first ``steps``
+    decoded tokens (``routing_log`` of the decode steps, ``n_moe`` calls
+    a step), in token order: ``routing_replay``'s ``logged``."""
+    return [torch.cat([prompt_routes[layer][0]]
+                      + [decoded[i * n_moe + layer][0]
+                         for i in range(steps)])
+            for layer in range(n_moe)]
+
+
 def flips(a, b, rows=slice(None)) -> list:
     """Per MoE layer, the tokens (of ``rows``) whose expert set differs
     between two logs of the same layers."""
@@ -2230,9 +2281,10 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
     An MoE config drops tokens over capacity in prefill, and a one-token
     decode never does; so (b) runs a model at ``check_capacity``, where
     the capacity is the group size and nothing drops, and the line prints
-    the drop share at the config's own factor beside it, and, per MoE
-    layer, the tokens whose expert set differs between the two runs of
-    each check (routing flips from bf16 rounding). With ``check_dtype``
+    the drop share at the config's own factor beside it; the check's
+    prefill takes the experts decode chose (``routing_replay``), and the
+    line prints, per MoE layer, the tokens whose own choice differs
+    (routing flips from bf16 rounding). With ``check_dtype``
     (xLSTM: float32), (b) runs the same weights in that dtype, prefill
     and decode fed the timed run's tokens, and the timed bf16 decode's
     own gaps are printed beside it, unchecked: the 48-block xLSTM stack
@@ -2312,9 +2364,11 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
     check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"prefill logits {tuple(logits.shape)} not finite or misshapen")
+    prompt_routes = []
     if check_capacity:
         del caches
-        start, caches = check_prefill(params, batch(prompt))
+        with routing_log() as prompt_routes:
+            start, caches = check_prefill(params, batch(prompt))
     else:
         start = logits
     cache_bytes = sum(t.numel() * t.element_size()
@@ -2373,11 +2427,16 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
         del caches_c
     else:
         params_c = params
-    with routing_log() as after_one_routes:
+    # an MoE config's prefill runs on decode's routing (each layer's
+    # experts for the prompt and the decoded tokens); the flips, where
+    # the prefill's own choice differs, are counted beside
+    with routing_replay(replayed(prompt_routes, decoded, n_moe, 1)) \
+            as after_one_routes:
         after_one, _ = check_prefill(params_c, batch(torch.cat(
             [prompt, tokens[0]], 1)))
     logit_gap("decode step 1 vs prefill", first, after_one, bound, cfg.name)
-    with routing_log() as after_all_routes:
+    with routing_replay(replayed(prompt_routes, decoded, n_moe, steps)) \
+            as after_all_routes:
         after_all, _ = check_prefill(params_c, batch(torch.cat(
             [prompt] + tokens, 1)))
     logit_gap(f"decode step {steps} vs prefill", out, after_all, bound,

@@ -9,12 +9,14 @@ collectives and roofline terms.
 
 The port's counterpart of ``repro.launch.dryrun``, which lowers and
 compiles each step for 256 or 512 TPU chips and reads the HLO. Here the
-step runs eagerly under ``FakeTensorMode`` on the CPU's route, with one
-exception: attention without a gradient (prefill, the encoder-decoder's
+step runs eagerly under ``FakeTensorMode`` on the CPU's route, with two
+exceptions: attention without a gradient (prefill, the encoder-decoder's
 cross-attention at decode) is the flash kernel on the card, so the trace
 replaces ``ops.flash_attention`` by an opaque op of the kernel's output
 shape, which holds no (Sq, Sk) scores and is counted as the kernel's
-products over the pairs its mask admits. On a mesh (``launch.mesh``, a
+products over the pairs its mask admits; and the MoE's grouped products
+run as on the card (``torch._grouped_mm``, counted at their static rows,
+since the routing is not known). On a mesh (``launch.mesh``, a
 fake process group) the parameters, optimizer state, batch and caches
 are DTensors split by the recipe (``launch.specs``), and what is counted
 is rank 0's: its local ops (the counting modes pass DTensor ops on to
@@ -80,6 +82,7 @@ from repro_torch.launch.mesh import (COLLECTIVE_BW, HBM_BW, HBM_BYTES,
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step)
 from repro_torch.models import build
+from repro_torch.models import moe
 from repro_torch.optim import make_optimizer
 
 RESULTS_DIR = os.environ.get("DRYRUN_DIR", "results/dryrun")
@@ -195,6 +198,27 @@ class _LocalMemTracker(MemTracker):
         return super().__torch_dispatch__(func, types, args, kwargs)
 
 
+def _grouped_mm_as_on_card(a, w, offs):
+    """``moe.grouped_mm`` as the card runs it, ``torch._grouped_mm``: its
+    fake kernel gives the output's shape, where the CPU's twin would read
+    the experts' ends on the host. That kernel takes bf16 alone, so a
+    trace in another dtype (the SMOKE configs' fp32) casts around it and
+    counts the casts besides."""
+    if a.dtype == torch.bfloat16:
+        return torch._grouped_mm(a, w, offs=offs)
+    bf = torch.bfloat16
+    return torch._grouped_mm(a.to(bf), w.to(bf), offs=offs).to(a.dtype)
+
+
+def _grouped_mm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs):
+    """``torch._grouped_mm``'s products at its static rows, which a
+    dry-run counts in full since it cannot know the routing: 2 x a's
+    elements x b's columns, for (R, D) by (E, D, F) (the forward and the
+    input's gradient) and for (D, R) by (R, F) (the weights' gradient,
+    split along R)."""
+    return 2 * math.prod(a_shape) * b_shape[-1]
+
+
 def _flash_via_stand_in(q, k, v, *, causal=True, window=None, softcap=None,
                         scale=None):
     if ops._is_dtensor(q):
@@ -277,14 +301,18 @@ def analyze(cfg: ModelConfig, shape: InputShape, opt_name: str = "adamw",
         tracker = _LocalMemTracker()
         tracker.track_external(*arg_tensors)
         traffic = _Traffic({torch.ops.repro_torch.flash_attention:
-                            shape_wrapper(_flash_flops)})
+                            shape_wrapper(_flash_flops),
+                            torch.ops.aten._grouped_mm:
+                            shape_wrapper(_grouped_mm_flops)})
         real_flash, ops.flash_attention = (ops.flash_attention,
                                            _flash_via_stand_in)
+        real_gmm, moe.grouped_mm = moe.grouped_mm, _grouped_mm_as_on_card
         try:
             with _shape_inference_paused(), tracker, traffic:
                 step(*args)
         finally:
             ops.flash_attention = real_flash
+            moe.grouped_mm = real_gmm
     peak = max(snap["Total"] for snap in
                tracker.get_tracker_snapshot("peak").values())
     dot = float(traffic.dot_flops)

@@ -51,7 +51,9 @@ Spans in the program (name: where; what it covers):
 
 Counters: ``moe.pairs_kept`` (real tokens' kept (token, expert) pairs,
 a device sum) and ``moe.slots`` (groups x experts x capacity), both in
-``moe_apply``.
+``moe_apply``; ``moe.rows`` (the rows the experts' grouped products run
+over, one per kept pair of a real token, a device sum), in
+``moe._expert_rows``.
 """
 from __future__ import annotations
 

@@ -259,6 +259,8 @@ def test_moe_prefill_and_train_step_spans_and_counters():
     assert 0 < c["moe.pairs_kept"] <= c["moe.slots"]
     assert c["moe.pairs_kept"] <= cfg.num_layers * tokens * m.top_k
     assert c["moe.slots"] % (cfg.num_layers * groups * m.num_experts) == 0
+    # the grouped products' rows: one per kept pair
+    assert c["moe.rows"] == c["moe.pairs_kept"]
 
     telemetry.reset()
     opt = adamw(1e-3)
@@ -352,7 +354,8 @@ def test_prefill_and_train_readers_match_the_hand_worked_numbers(
         _span(5, "model.moe", 60, 70, 4, 4, device_s=0.010)]
     monkeypatch.setattr(telemetry, "collect", lambda: {
         "spans": prefill, "counters": {"moe.pairs_kept": 30.0,
-                                       "moe.slots": 40.0}})
+                                       "moe.slots": 40.0,
+                                       "moe.rows": 32.0}})
     rec = _rec([(12, 38), (55, 60), (65, 85)], (0, 100), {"requests": 2})
     assert rec["trace"]["busy_s"] == pytest.approx(51.0)
     # idle under the whole request span (its MoE layers included):
@@ -361,6 +364,13 @@ def test_prefill_and_train_readers_match_the_hand_worked_numbers(
         pytest.approx(9500.0)
     assert _read("moe_device_share.prefill", rec) == pytest.approx(
         100 * 0.020 / 51.0)
+    assert _read("moe_slot_fill.prefill", rec) == pytest.approx(75.0)
+    assert _read("moe_row_fill.prefill", rec) == pytest.approx(93.75)
+    # a program whose MoE counts no rows: no row fill, the rest as before
+    monkeypatch.setattr(telemetry, "collect", lambda: {
+        "spans": prefill, "counters": {"moe.pairs_kept": 30.0,
+                                       "moe.slots": 40.0}})
+    assert _read("moe_row_fill.prefill", rec) is None
     assert _read("moe_slot_fill.prefill", rec) == pytest.approx(75.0)
 
     train = [
@@ -380,7 +390,7 @@ def test_prefill_and_train_readers_match_the_hand_worked_numbers(
 NEW_METRICS = list(FL_IDLE) + [
     "step_idle_ms_per_request.prefill", "moe_device_share.prefill",
     "moe_slot_fill.prefill", "accumulate_device_share.train",
-    "optimizer_device_share.train"]
+    "optimizer_device_share.train", "moe_row_fill.prefill"]
 
 
 @pytest.mark.parametrize("metric", NEW_METRICS)
@@ -389,7 +399,8 @@ def test_readers_read_nothing_without_device_operations(metric,
     """None on a CPU run (no device operations), without the program's
     spans (a commit before them), and without a traced window."""
     monkeypatch.setattr(telemetry, "collect", lambda: {
-        "spans": FL_SPANS, "counters": {"moe.slots": 1.0}})
+        "spans": FL_SPANS, "counters": {"moe.slots": 1.0,
+                                        "moe.rows": 1.0}})
     counters = {"rounds": 2, "requests": 2, "steps": 1}
     assert _read(metric, _rec([], (0, 100), counters)) is None
     assert _read(metric, {"spans": {}, "counters": counters, "counts": {},
