@@ -68,7 +68,8 @@ before the final line:
    ``aggregate`` -> ``apply_delta`` -> usage -> ``dual_update`` ->
    eval): three rounds from zero duals (q = 0, then q = 2), one at
    lambda_C = 0.5 (q = 1), one with ``wire_topk = 64`` (its six top-k
-   launches must all take the warp kernel). Then one
+   launches must all take the warp kernel); every round's clients
+   launch the fused AdamW kernel, and a q = 0 round no wire kernel. Then one
    client's first microbatch on the card and on the CPU from the same
    parameters and batch.
 4. engine: ``repro_torch.launch.train.main(["--method", "both",
@@ -89,7 +90,9 @@ before the final line:
 5. fleet: the engine's other pieces at the full-width char-LM (16
    clients, 6 a round). CAFL-L for 2 rounds with the sequential and
    with the batched executor under deterministic algorithms, held to
-   each other at 2e-3 with equal knobs, participants and launch counts,
+   each other at 2e-3 with equal knobs, participants and launch counts
+   (but the optimizer's: only the sequential client runs the AdamW
+   kernel),
    with each executor's seconds per round and, under torch.profiler,
    its device kernel launches per client microbatch and busy share in
    one more LocalTrain round. Then ``examples/async_fleet.py``'s fleet
@@ -188,6 +191,10 @@ before the final line:
    port's dry-run estimate of the same setting (``launch.dryrun``, run in
    worker processes meanwhile), MFU against 989 TFLOP/s; Gemma2's line
    is followed by its dry-run record's roofline.
+   Then the fused AdamW kernel against the plain piece path, bit for bit
+   (``adamw`` lines): the expert leaves of one full-width Phi-3.5-MoE
+   layer, and every parameter of Phi-3.5-MoE's full-width train step at
+   the setting above, 2 steps each, one kernel launch a parameter.
 9. mesh: rank 0 of the single production mesh (256 cards as data 16 x
    model 16, ``launch.mesh.use_mesh`` over a fake process group, the
    ``default`` recipe of ``launch.specs``), Gemma2-9B at full width and
@@ -1303,11 +1310,16 @@ def drive_rounds(dev, cfg, fl, ds):
                   f"form {want_mb}")
             check(abs(r.params_active - n_active) <= 1e-6 * n_active,
                   f"round {t}: params_active {r.params_active} != {n_active}")
+        # each client's local steps run the fused AdamW kernel
+        check(launched["adamw_update"] > 0,
+              f"round {t}: the clients' AdamW launched no kernel: "
+              f"{launched}")
         # one launch of each wire kernel per client delta: its 16 leaves
         # are staged into one buffer of blocks (compress_decompress)
         per_client = len(results)
         if kn.q == 0:
-            check(not any(launched.values()),
+            wire = {k: n for k, n in launched.items() if k != "adamw_update"}
+            check(not any(wire.values()),
                   f"round {t}: wire kernels launched at q=0: {launched}")
         else:
             quant = ("quantize_topk_blocks" if topk is not None
@@ -1624,7 +1636,8 @@ def drive_executors(dev) -> dict:
     """CAFL-L for FLEET_ROUNDS rounds with the sequential and with the
     batched executor, both under deterministic algorithms, held to each
     other at BATCHED_ATOL with equal knobs, participants and launch
-    counts; then each executor's launches per microbatch and busy share
+    counts (but ``adamw_update``'s, launched by the sequential client
+    alone); then each executor's launches per microbatch and busy share
     under the profiler."""
     from repro_torch.core import Knobs
     from repro_torch.fl import FederatedEngine
@@ -1648,9 +1661,15 @@ def drive_executors(dev) -> dict:
             engine_rounds("cafl", "sync", f"deterministic {executor}",
                           runs[executor])
     seq, bat = runs["sequential"], runs["batched"]
-    check(launches["batched"] == launches["sequential"],
+    # the sequential client's in-place AdamW runs the fused kernel; the
+    # batched executor's vmapped functional update runs plain ops
+    wire = {ex: {k: n for k, n in c.items() if k != "adamw_update"}
+            for ex, c in launches.items()}
+    check(wire["batched"] == wire["sequential"]
+          and launches["sequential"]["adamw_update"] > 0
+          and launches["batched"]["adamw_update"] == 0,
           f"batched launches {launches['batched']} != sequential "
-          f"{launches['sequential']}")
+          f"{launches['sequential']} (but the optimizer's)")
     counts = launches["batched"]
     check(counts["quantize_blocks"] > 0 and counts["dequantize_blocks"] > 0
           and counts["flash_attention_bhsd"] > 0,
@@ -2774,10 +2793,115 @@ def drive_train_full(dev, smi: str, records) -> None:
                   "nvidia_smi": smi})
 
 
+@contextlib.contextmanager
+def adamw_against_plain(seen: list):
+    """While open, each parameter's AdamW step on the card (the fused
+    kernel, through ``ops.adamw_update_``) is first taken by the plain
+    piece path (``ref.adamw_update_ref``) on copies of its gradient,
+    parameter and moments; ``seen`` gets one (shape, [the parts that
+    differ, of parameter, mu and nu, by ``torch.equal``]) per step."""
+    from repro_torch.kernels import ops, ref
+    real = ops.adamw_update_
+
+    def checked(grad, param, mu, nu, mask, count, *, corrections, **kw):
+        want = [t.clone() for t in (param, mu, nu)]
+        ref.adamw_update_ref(grad.clone(), *want, mask, count, **kw)
+        real(grad, param, mu, nu, mask, count, corrections=corrections,
+             **kw)
+        seen.append((list(param.shape), [
+            part for part, got, w in zip(("param", "mu", "nu"),
+                                         (param, mu, nu), want)
+            if not torch.equal(got, w)]))
+
+    ops.adamw_update_ = checked
+    try:
+        yield
+    finally:
+        ops.adamw_update_ = real
+
+
+def drive_adamw(dev) -> None:
+    """The fused AdamW kernel against the plain piece path, bit for bit
+    (``adamw_against_plain``): (a) the expert leaves of one full-width
+    Phi-3.5-MoE layer (16 x 3 x 4,096 x 6,400: bf16 weights, fp32
+    gradients and moments, a 0-d mask of 1, decay 0.1), 2 steps; (b)
+    Phi-3.5-MoE's full-width train step at the train phase's setting
+    (``TRAIN_DEPTH`` layers, 2 x 4,096 tokens in 2 microbatches, mask
+    k = 1), 2 steps, every parameter. Each step launches the kernel once
+    a parameter. No timing."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.freezing import mask_tree
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import adamw
+
+    arch = "phi3.5-moe-42b-a6.6b"
+    cfg, seq, _ = train_setting(arch)
+    d, f, e = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.num_experts
+    gen = torch.Generator(device=dev).manual_seed(31)
+    shapes = {"expert_gate": (e, d, f), "expert_up": (e, d, f),
+              "expert_down": (e, f, d)}
+    params = {k: (torch.randn(s, generator=gen, device=dev) * 0.02
+                  ).to(torch.bfloat16) for k, s in shapes.items()}
+    opt = adamw(TRAIN_LR, weight_decay=0.1)
+    state = opt.init(params)
+    mask = {k: torch.tensor(1.0, device=dev) for k in params}
+    seen = []
+    ops.reset_launches()
+    with adamw_against_plain(seen):
+        for _ in range(TRAIN_STEPS):
+            grads = {k: torch.randn(s, generator=gen, device=dev) * 1e-3
+                     for k, s in shapes.items()}
+            opt.update_(grads, state, params, mask)
+    torch.cuda.synchronize()
+    leaf = {"phase": "adamw", "check": "expert_leaves",
+            "elements": sum(p.numel() for p in params.values()),
+            "steps": TRAIN_STEPS,
+            "launches": ops.LAUNCHES["adamw_update"],
+            "differ": [s for s in seen if s[1]]}
+    emit(leaf)
+    check(len(seen) == len(shapes) * TRAIN_STEPS and not leaf["differ"]
+          and leaf["launches"] == len(shapes) * TRAIN_STEPS,
+          f"AdamW kernel vs the piece path at Phi's expert leaves: {leaf}")
+    del params, state, grads
+    torch.cuda.empty_cache()
+
+    shape = InputShape("train_4k", seq, TRAIN_BATCH, "train")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        dev).params()
+    state = opt.init(params)
+    mask = mask_tree(params, cfg, TRAIN_K)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             synthetic_batch(cfg, shape.global_batch, seq, seed=7).items()}
+    step = make_train_step(model, opt, True, TRAIN_MICROBATCHES)
+    seen = []
+    ops.reset_launches()
+    with adamw_against_plain(seen):
+        for _ in range(TRAIN_STEPS):
+            params, state, loss = step(params, state, batch, mask)
+    torch.cuda.synchronize()
+    full = {"phase": "adamw", "check": "train_step", "config": cfg.name,
+            "layers": cfg.num_layers, "params": len(params),
+            "steps": TRAIN_STEPS, "loss": float(loss),
+            "launches": ops.LAUNCHES["adamw_update"],
+            "differ": [s for s in seen if s[1]]}
+    emit(full)
+    check(len(seen) == len(params) * TRAIN_STEPS and not full["differ"]
+          and full["launches"] == len(params) * TRAIN_STEPS
+          and math.isfinite(full["loss"]),
+          f"AdamW kernel vs the piece path in {arch}'s train step: {full}")
+    del params, state, batch, step
+    torch.cuda.empty_cache()
+
+
 def drive_train_phase(dev, smi: str) -> float:
     """Phase 8: the dry-runs of the full-width settings start in worker
-    processes (xLSTM's, the longest, first), the SMOKE card-vs-CPU steps
-    and then the full-width steps run meanwhile -> the phase's seconds."""
+    processes (xLSTM's, the longest, first), the SMOKE card-vs-CPU steps,
+    the full-width steps and the AdamW kernel's checks run meanwhile ->
+    the phase's seconds."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2800,6 +2924,7 @@ def drive_train_phase(dev, smi: str) -> float:
                        for arch in order}
             drive_train_smoke(dev)
             drive_train_full(dev, smi, records)
+            drive_adamw(dev)
     finally:
         torch.cuda.empty_cache()
         torch._C._accelerator_setAllocatorSettings("expandable_segments:False")

@@ -11,7 +11,10 @@ Prints JSON lines:
   staged into one buffer, as ``finalize_delta`` runs it; bits 2, k 64),
   averaged over 20 deltas, beside ``torch.mul``'s (the dequantizer's
   library call) and the device time of all kernels of ``torch.topk``
-  over |x| (a selection-only yardstick for the top-k kernel).
+  over |x| (a selection-only yardstick for the top-k kernel); then the
+  fused AdamW kernel at the expert leaves of one full-width Phi-3.5-MoE
+  layer beside the plain piece path, the bound and ``torch._fused_adamw_``
+  in fp32 (``adamw_leaf``).
 - ``profile``: one client's LocalTrain at the given knobs (5 local
   steps): wall time per microbatch without the profiler, per step part
   (grad, masked AdamW, the wire round trip) with a synchronize around
@@ -74,7 +77,7 @@ import torch  # noqa: E402
 from chip_smoke import (FLASH_TIMED, SUM_TIMED, TRAIN_K,  # noqa: E402
                         TRAIN_LR, TRAIN_MICROBATCHES, TRAIN_BATCH, check,
                         device_kernels, device_split, emit, flash_bound_ms,
-                        flash_inputs, full_width, nvidia_smi_line,
+                        flash_inputs, full_width, host_us, nvidia_smi_line,
                         smi_clocks, time_ms, train_setting)
 
 #: the train steps ``train_split`` profiles: a dense stack with softcaps,
@@ -126,6 +129,67 @@ def wire_kernel_device_us(leaves, bits: int = 2, k: int = 64) -> dict:
                 lambda: torch.topk(buf.abs(), k, dim=1, sorted=False),
                 reps=20)[1].values()),
     }
+
+
+def adamw_leaf(dev) -> dict:
+    """The fused AdamW kernel at the expert leaves of one full-width
+    Phi-3.5-MoE layer (16 x 3 x 4,096 x 6,400: bf16 weights, fp32
+    gradients and moments, a 0-d mask of 1, decay 0.1; one launch a
+    leaf, as ``update_`` runs it): the kernel's device time under the
+    profiler, the CUDA-event time of the step, the plain piece path's
+    (``ref.adamw_update_ref`` on the card), the bound (24 bytes an
+    element at 3.35 TB/s), the wrapper's host cost (at 4,096 elements)
+    and, as the library's yardstick only, ``torch._fused_adamw_`` over
+    the same elements in fp32 (28 bytes an element) with its own bound."""
+    from repro_torch.kernels import ops, ref
+    cfg = train_setting("phi3.5-moe-42b-a6.6b")[0]
+    d, f, e = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.num_experts
+    shapes = [(e, d, f), (e, d, f), (e, f, d)]
+    gen = torch.Generator(device=dev).manual_seed(29)
+    hyper = dict(lr=TRAIN_LR, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.1,
+                 piece=1 << 26)
+    count = torch.ones((), dtype=torch.int32, device=dev)
+    bc = ref.adamw_corrections(count, hyper["b1"], hyper["b2"])
+    mask = torch.tensor(1.0, device=dev)
+
+    def leaves(n=None):
+        out = []
+        for shape in shapes if n is None else [(n,)]:
+            p = (torch.randn(shape, generator=gen, device=dev) * 0.02
+                 ).to(torch.bfloat16)
+            g = torch.randn(shape, generator=gen, device=dev) * 1e-3
+            out.append((g, p, torch.zeros(shape, device=dev),
+                        torch.zeros(shape, device=dev)))
+        return out
+
+    def kernel(tree):
+        return lambda: [ops.adamw_update_(*t, mask, count,
+                                          corrections=lambda: bc, **hyper)
+                        for t in tree]
+
+    tree = leaves()
+    n = sum(t[1].numel() for t in tree)
+    row = {"phase": "kernel_device", "kernel": "adamw_update",
+           "shapes": shapes, "elements": n,
+           "device_us": kernel_device_us(kernel(tree), "adamw_update",
+                                         reps=5, what="adamw"),
+           "ms": time_ms(kernel(tree), reps=10),
+           "plain_ms": time_ms(lambda: [ref.adamw_update_ref(
+               *t, mask, count, **hyper) for t in tree], reps=5),
+           "bound_ms": n * 24 / 3.35e12 * 1e3}
+    del tree
+    row["host_us"] = host_us(kernel(leaves(4096)))
+    torch.cuda.empty_cache()
+    lib = [[torch.randn(s, generator=gen, device=dev) for s in shapes]
+           for _ in range(4)]
+    steps = [torch.ones((), device=dev) for _ in shapes]
+    row["library_fp32_ms"] = time_ms(lambda: torch._fused_adamw_(
+        *lib, [], steps, lr=TRAIN_LR, beta1=0.9, beta2=0.999,
+        weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False), reps=10)
+    row["library_fp32_bound_ms"] = n * 28 / 3.35e12 * 1e3
+    del lib
+    torch.cuda.empty_cache()
+    return row
 
 
 def flash_times(dev) -> dict:
@@ -366,6 +430,7 @@ def main(argv=None) -> int:
                grad_accum=args.grad_accum)
     emit({"phase": "kernel_device", "bits": 2, "k": 64,
           "device_us": wire_kernel_device_us(leaves)})
+    emit(adamw_leaf(dev))
     emit(profile_client(model, fl, ds, params, kn))
     emit(masked_fold(dev))
     emit({"phase": "flash", "times": flash_times(dev)})

@@ -36,7 +36,8 @@ import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_HERE, "csrc", name)
-                for name in ("wire_kernels.cu", "flash_attention.cu"))
+                for name in ("wire_kernels.cu", "flash_attention.cu",
+                             "optim_kernels.cu"))
 #: src/repro_torch/kernels -> the checkout root, three levels up
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_HERE)))
 BUILD_ROOT = os.path.join(_REPO_ROOT, "build", "repro_torch_kernels")
@@ -49,7 +50,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 LAUNCHES: Dict[str, int] = {"quantize_blocks": 0, "dequantize_blocks": 0,
                             "quantize_topk_blocks": 0, "masked_sum_limbs": 0,
-                            "masked_sum_u64": 0, "flash_attention_bhsd": 0}
+                            "masked_sum_u64": 0, "flash_attention_bhsd": 0,
+                            "adamw_update": 0}
 #: the flash kernel's launches by variant (``flash_attention.VARIANTS``)
 FLASH_VARIANTS: Dict[str, int] = {"mma_bf16": 0, "rows_f32": 0,
                                   "tiled_f32": 0}
@@ -78,6 +80,10 @@ _SIGNATURES = {
     "masked_sum_u64_launch": [_VOIDP, _VOIDP, _INT, _INT64, _VOIDP],
     # the packed FlashArgs (flash_attention._ARGS), stream
     "flash_attention_bhsd_launch": [ctypes.c_char_p, _VOIDP],
+    # g, p, mu, nu, mask, bc1, bc2, n, mask_inner, g / p / moment dtypes,
+    # b1, 1 - b1, b2, 1 - b2, eps, weight_decay, -lr, decay, stream
+    "adamw_update_launch": [_VOIDP] * 7 + [_INT64, _INT64, _INT, _INT, _INT]
+                           + [_FLOAT] * 7 + [_INT, _VOIDP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,9 +1,9 @@
-"""Public wire-path, masked-sum and attention wrappers, dispatched by the
-tensor's device.
+"""Public wire-path, masked-sum, attention and optimizer-step wrappers,
+dispatched by the tensor's device.
 
 A CUDA tensor goes to the hand-written kernels (``kernels/quantize.py``,
-``kernels/wire.py``, ``kernels/flash_attention.py``), which launch or
-raise; a CPU tensor goes to the
+``kernels/wire.py``, ``kernels/flash_attention.py``,
+``kernels/adamw.py``), which launch or raise; a CPU tensor goes to the
 plain versions in ``kernels/ref.py``. There is no switch and no
 fallback: the device of the data decides. A non-tensor input is placed
 on ``device`` first, and ``device=None`` means ``"cuda"``.
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import adamw as ak
 from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import quantize as qk
 from repro_torch.kernels import ref
@@ -271,6 +272,36 @@ def attention_local(fn, q, k, v, **kw):
                      in_placements=(qp, kp, kp),
                      in_grad_placements=(qp, kg, kg),
                      device_mesh=mesh)(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# the optimizer's step
+# ---------------------------------------------------------------------------
+
+
+def adamw_update_(grad: torch.Tensor, param: torch.Tensor, mu: torch.Tensor,
+                  nu: torch.Tensor, mask: Optional[torch.Tensor],
+                  count: torch.Tensor, *, lr: float, b1: float, b2: float,
+                  eps: float, weight_decay: float, piece: int,
+                  corrections) -> None:
+    """One AdamW step of one parameter in place (``param``, ``mu``,
+    ``nu``; ``count`` already advanced), ``optim.optimizers.adamw``'s
+    ``update_``. A CUDA parameter takes the fused kernel
+    (``adamw.adamw_update``: one launch, bit-equal to the plain step),
+    with the bias corrections ``corrections()`` gives (the step's, 0-d
+    fp32 on the card, worked out once for all its parameters); a CPU or
+    ``meta`` one (a trace on fake tensors) the plain step,
+    ``ref.adamw_update_ref``, which works them out from ``count`` a
+    piece of ``piece`` elements at a time."""
+    hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    if param.is_cuda:
+        bc1, bc2 = corrections()
+        ak.adamw_update(grad, param, mu, nu, mask, bc1, bc2, **hyper)
+    elif param.device.type in ("cpu", "meta"):
+        ref.adamw_update_ref(grad, param, mu, nu, mask, count, piece=piece,
+                             **hyper)
+    else:
+        raise ValueError(f"unsupported device {param.device}")
 
 
 # ---------------------------------------------------------------------------

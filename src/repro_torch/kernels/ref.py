@@ -5,7 +5,10 @@ The masked-sum versions (``masked_sum_ref`` on limbs,
 by construction; the flash-attention version
 (``flash_attention_ref``) is the naive O(S^2) fp32 oracle of
 ``repro.kernels.ref.flash_attention_ref``, held to the kernel within a
-stated tolerance. The quantizers' notes follow.
+stated tolerance. The AdamW step (``adamw_update_ref``, with the
+arithmetic ``optim.optimizers`` builds on) is the optimizer's own, eager
+op for op, which ``csrc/optim_kernels.cu`` repeats bit for bit. The
+quantizers' notes follow.
 
 Each function repeats the arithmetic of its twin in ``repro.kernels.ref``
 and of the CUDA kernel in ``csrc/wire_kernels.cu`` operation for
@@ -230,3 +233,90 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(s.masked_fill_(~mask, -1e30), dim=-1)
     out = torch.einsum("bkgql,blkd->bqkgd", w, v.to(torch.float32))
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# AdamW (optim.optimizers.adamw): its arithmetic, and its in-place step a
+# piece of a parameter at a time (the twin of the fused CUDA step)
+# ---------------------------------------------------------------------------
+
+
+def adamw_moments(mu: torch.Tensor, nu: torch.Tensor, g: torch.Tensor,
+                  b1: float, b2: float, moment_dtype: torch.dtype):
+    """The new moments in ``moment_dtype``, computed in fp32."""
+    g = g.to(torch.float32)
+    return ((b1 * mu.to(torch.float32) + (1 - b1) * g).to(moment_dtype),
+            (b2 * nu.to(torch.float32) + (1 - b2) * torch.square(g)
+             ).to(moment_dtype))
+
+
+def adamw_corrections(count: torch.Tensor, b1: float, b2: float):
+    """The bias corrections ``1 - b ** count`` in fp32."""
+    cf = count.to(torch.float32)
+    return 1 - b1 ** cf, 1 - b2 ** cf
+
+
+def adamw_step(mu: torch.Tensor, nu: torch.Tensor, p: torch.Tensor,
+               bc1, bc2, lr: float, eps: float,
+               weight_decay: float) -> torch.Tensor:
+    """The update of ``p`` from the new moments, in ``p``'s dtype:
+    ``-lr * ((mu / bc1) / (sqrt(nu / bc2) + eps) + weight_decay * p)``,
+    the decay on matrices (``ndim >= 2``) only."""
+    m = mu.to(torch.float32)
+    v = nu.to(torch.float32)
+    step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    if weight_decay and p.ndim >= 2:   # decay matrices only
+        step = step + weight_decay * p.to(torch.float32)
+    return (-lr * step).to(p.dtype)
+
+
+def pieces(t: torch.Tensor, size: int):
+    """Index ranges along dim 0 of at most ~``size`` elements (the whole
+    tensor when it is 0-dim)."""
+    if t.ndim == 0:
+        yield ...
+        return
+    rows = max(1, size // max(1, t[0].numel()))
+    for i in range(0, t.shape[0], rows):
+        yield slice(i, i + rows)
+
+
+def update_pieces_(grad: torch.Tensor, param: torch.Tensor,
+                   mask: Optional[torch.Tensor], piece_update,
+                   size: int) -> None:
+    """An optimizer's plain in-place step of one parameter, a piece of
+    ``size`` elements along dim 0 at a time (``pieces``), so that its
+    fp32 temporaries stay small: the mask (0-d, or broadcast against the
+    leading dims) multiplies the piece's gradient in its buffer, then
+    ``piece_update(rows, g, p)``'s update, which is cast to the
+    parameter's dtype and added into it."""
+    for rows in pieces(param, size):
+        g, p = grad[rows], param[rows]
+        m = mask if mask is None or mask.ndim == 0 else mask[rows]
+        if m is not None:
+            g.mul_(m.to(g.dtype))
+        u = piece_update(rows, g, p)
+        if m is not None:
+            u = u * m.to(u.dtype)
+        p.add_(u.to(p.dtype))
+
+
+def adamw_update_ref(grad: torch.Tensor, param: torch.Tensor,
+                     mu: torch.Tensor, nu: torch.Tensor,
+                     mask: Optional[torch.Tensor], count: torch.Tensor, *,
+                     lr: float, b1: float, b2: float, eps: float,
+                     weight_decay: float, piece: int) -> None:
+    """One AdamW step of one parameter in place, ``update_pieces_``'s
+    pieces of eager ops: each piece's moments written into ``mu`` and
+    ``nu`` (in their dtype), its bias corrections worked out from the
+    state's ``count`` (already advanced), its update added into
+    ``param``. The gradient is masked in its own buffer."""
+    def piece_update(rows, g, p):
+        mu_r, nu_r = mu[rows], nu[rows]
+        m, v = adamw_moments(mu_r, nu_r, g, b1, b2, mu.dtype)
+        mu_r.copy_(m)
+        nu_r.copy_(v)
+        return adamw_step(m, v, p, *adamw_corrections(count, b1, b2), lr,
+                          eps, weight_decay)
+
+    update_pieces_(grad, param, mask, piece_update, piece)

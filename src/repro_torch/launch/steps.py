@@ -53,11 +53,13 @@ def make_train_step(model: Model, optimizer: Optimizer,
     The step runs on the parameters' device and donates its inputs, as
     the reference's dry-run jit does (``donate_argnums=(0, 1)``): the
     optimizer's ``update_`` writes the new parameters and state into the
-    tensors it was given, which the step returns, a piece of a parameter
-    at a time, so that old and new state are never live together and
-    the update's fp32 temporaries stay small (16 B a parameter under
-    AdamW with an fp32 accumulator, not 24 plus several times the
-    largest leaf). Keep a copy of what the caller still needs."""
+    tensors it was given, which the step returns, so that old and new
+    state are never live together (16 B a parameter under AdamW with an
+    fp32 accumulator, not 24 plus several times the largest leaf): on
+    the card AdamW in one fused kernel a parameter, with no temporaries;
+    elsewhere a piece of a parameter at a time, so that the update's
+    fp32 temporaries stay small. Keep a copy of what the caller still
+    needs."""
 
     def grads_of(params: Tensors, batch):
         leaves = {k: v.detach().requires_grad_(True)

@@ -8,36 +8,45 @@ given (see ``Optimizer``).
 
 Not ``torch.optim``: that one applies weight decay to every parameter it
 holds (frozen leaves included) and orders the bias correction
-differently. This keeps the reference's arithmetic: momentum and moments
-in fp32 (bf16 storage for ``adamw_bf16``, computed in fp32 and rounded
-on store), bias corrections in fp32, decay on leaves with ``ndim >= 2``
-only (which, in the stacked layout, includes the LayerNorm scales and
-biases of the units), the step scaled by ``-lr``. Every update builds
-new tensors and never reads a value back to the host, so it runs under
-``torch.func.vmap`` (the batched executor vmaps it over clients).
+differently. This keeps the reference's arithmetic (AdamW's lives in
+``kernels/ref.py``, beside the fused kernel that repeats it): momentum
+and moments in fp32 (bf16 storage for ``adamw_bf16``, computed in fp32
+and rounded on store), bias corrections in fp32, decay on leaves with
+``ndim >= 2`` only (which, in the stacked layout, includes the LayerNorm
+scales and biases of the units), the step scaled by ``-lr``. Every
+``update`` builds new tensors and never reads a value back to the host,
+so it runs under ``torch.func.vmap`` (the batched executor vmaps it over
+clients).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch import telemetry
+from repro_torch.kernels import ops, ref
+
 Tensors = Dict[str, torch.Tensor]
 
-#: elements of one parameter piece per step of ``update_`` (its fp32
-#: temporaries then take ~2 GB, not several times the largest leaf)
+#: elements of one parameter piece per step of the plain ``update_``
+#: (its fp32 temporaries then take ~2 GB, not several times the largest
+#: leaf)
 UPDATE_PIECE = 1 << 26
 
 
 class Optimizer(NamedTuple):
     """``update`` builds new tensors. ``update_(grads, state, params,
     mask=None)`` takes the same step in place, into ``params`` and
-    ``state``, a piece of a parameter (``UPDATE_PIECE`` elements along
-    dim 0) at a time, so that old and new state are never live together.
-    A mask (a 0/1 tensor per parameter, broadcast against its leading
-    dims) multiplies the gradients in their own buffers (a gradient
-    shared by two parameters, or laid out with overlaps, is copied
-    first), then the updates, each cast to the tensor's dtype. It
+    ``state``, so that old and new state are never live together: AdamW
+    on the card in one fused kernel per parameter
+    (``kernels.ops.adamw_update_``), every other step a piece of a
+    parameter (``UPDATE_PIECE`` elements along dim 0) at a time. A mask
+    (a 0/1 tensor per parameter, broadcast against its leading dims)
+    multiplies the gradients (in their own buffers on the plain path: a
+    gradient shared by two parameters, or laid out with overlaps, is
+    copied first), then the updates, each cast to the tensor's dtype. It
     empties ``grads`` as it goes, freeing each gradient once its
     parameter is updated."""
     init: Callable
@@ -45,18 +54,18 @@ class Optimizer(NamedTuple):
     update_: Callable
 
 
-def _in_place(piece_update: Callable, tick: Optional[Callable] = None
+def _in_place(leaf_update: Callable, tick: Optional[Callable] = None
               ) -> Callable:
-    """``Optimizer.update_`` from ``piece_update(state, name, rows, g, p)
-    -> update of rows ``rows`` of parameter ``name````, which writes
-    those rows of the state in place; ``tick(state)`` advances the
-    state's shared leaves once, before the pieces."""
+    """``Optimizer.update_`` from ``leaf_update(state, name, g, p, mask,
+    step)``, which updates parameter ``name`` and its state in place;
+    ``tick(state)`` advances the state's shared leaves once, before the
+    parameters, and returns ``step`` (what the step's parameters
+    share)."""
 
     @torch.no_grad()
     def update_(grads: Tensors, state, params: Tensors,
                 mask: Optional[Tensors] = None):
-        if tick is not None:
-            tick(state)
+        step = tick(state) if tick is not None else None
         if mask is not None:
             _own_buffers(grads)
         local_state = _local(state)
@@ -64,19 +73,23 @@ def _in_place(piece_update: Callable, tick: Optional[Callable] = None
             g_all, p_all = grads.pop(k), params[k]
             m_all = None if mask is None else mask[k]
             g_all, p_all, m_all = _on_shards(g_all, p_all, m_all)
-            for rows in _pieces(p_all):
-                g, p = g_all[rows], p_all[rows]
-                m = m_all if m_all is None or m_all.ndim == 0 else m_all[rows]
-                if m is not None:
-                    g.mul_(m.to(g.dtype))
-                u = piece_update(local_state, k, rows, g, p)
-                if m is not None:
-                    u = u * m.to(u.dtype)
-                p.add_(u.to(p.dtype))
+            leaf_update(local_state, k, g_all, p_all, m_all, step)
             del g_all
         return params, state
 
     return update_
+
+
+def _piecewise(piece_update: Callable) -> Callable:
+    """A ``leaf_update`` that steps the parameter a piece at a time
+    (``ref.update_pieces_``), ``piece_update(state, name, rows, g, p)``
+    giving the update of those rows and writing their state in place."""
+
+    def leaf_update(state, name, g, p, m, step):
+        ref.update_pieces_(g, p, m, functools.partial(piece_update, state,
+                                                      name), UPDATE_PIECE)
+
+    return leaf_update
 
 
 def _local(tree):
@@ -122,17 +135,6 @@ def _own_buffers(grads: Tensors) -> None:
         seen.add(id(g))
 
 
-def _pieces(t: torch.Tensor):
-    """Index ranges along dim 0 of at most ~``UPDATE_PIECE`` elements
-    (the whole tensor when it is 0-dim)."""
-    if t.ndim == 0:
-        yield ...
-        return
-    rows = max(1, UPDATE_PIECE // max(1, t[0].numel()))
-    for i in range(0, t.shape[0], rows):
-        yield slice(i, i + rows)
-
-
 def sgd(lr: float) -> Optimizer:
     def init(params: Tensors):
         return ()
@@ -144,7 +146,7 @@ def sgd(lr: float) -> Optimizer:
     def piece(state, name, rows, g, p):
         return -lr * g
 
-    return Optimizer(init, update, _in_place(piece))
+    return Optimizer(init, update, _in_place(_piecewise(piece)))
 
 
 def momentum(lr: float, beta: float = 0.9) -> Optimizer:
@@ -165,7 +167,7 @@ def momentum(lr: float, beta: float = 0.9) -> Optimizer:
         m.copy_(advance(m, g))
         return -lr * m
 
-    return Optimizer(init, update, _in_place(piece))
+    return Optimizer(init, update, _in_place(_piecewise(piece)))
 
 
 class AdamState(NamedTuple):
@@ -186,47 +188,39 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                          nu={k: torch.zeros_like(z) for k, z in zeros.items()},
                          count=count)
 
-    def moments(mu, nu, g):
-        g = g.to(torch.float32)
-        return ((b1 * mu.to(torch.float32) + (1 - b1) * g).to(moment_dtype),
-                (b2 * nu.to(torch.float32) + (1 - b2) * torch.square(g)
-                 ).to(moment_dtype))
-
-    def corrections(count):
-        cf = count.to(torch.float32)
-        return 1 - b1 ** cf, 1 - b2 ** cf
-
-    def step_of(mu, nu, p, bc1, bc2):
-        m = mu.to(torch.float32)
-        v = nu.to(torch.float32)
-        step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        if weight_decay and p.ndim >= 2:   # decay matrices only
-            step = step + weight_decay * p.to(torch.float32)
-        return (-lr * step).to(p.dtype)
-
     @torch.no_grad()
     def update(grads: Tensors, state: AdamState, params: Tensors):
         count = state.count + 1
-        new = {k: moments(state.mu[k], state.nu[k], g)
+        new = {k: ref.adamw_moments(state.mu[k], state.nu[k], g, b1, b2,
+                                    moment_dtype)
                for k, g in grads.items()}
         mu = {k: m for k, (m, _) in new.items()}
         nu = {k: v for k, (_, v) in new.items()}
-        bc1, bc2 = corrections(count)
-        ups = {k: step_of(mu[k], nu[k], p, bc1, bc2)
+        bc1, bc2 = ref.adamw_corrections(count, b1, b2)
+        ups = {k: ref.adamw_step(mu[k], nu[k], p, bc1, bc2, lr, eps,
+                                 weight_decay)
                for k, p in params.items()}
         return ups, AdamState(mu=mu, nu=nu, count=count)
 
     def tick(state: AdamState):
         state.count.add_(1)
+        count = _local(state.count)
+        # the step's bias corrections, worked out once, when the fused
+        # kernel first asks (the plain pieces work out their own)
+        return functools.cache(lambda: ref.adamw_corrections(count, b1, b2))
 
-    def piece(state: AdamState, name, rows, g, p):
-        mu, nu = state.mu[name][rows], state.nu[name][rows]
-        m, v = moments(mu, nu, g)
-        mu.copy_(m)
-        nu.copy_(v)
-        return step_of(m, v, p, *corrections(state.count))
+    def leaf(state: AdamState, name, g, p, m, bias_corrections):
+        mu, nu = state.mu[name], state.nu[name]
+        # the least bytes the step moves: the gradient read, the
+        # parameter and both moments read and written
+        telemetry.count("optim.bytes", p.numel() * (
+            g.element_size() + 2 * (p.element_size() + mu.element_size()
+                                    + nu.element_size())))
+        ops.adamw_update_(g, p, mu, nu, m, state.count, lr=lr, b1=b1, b2=b2,
+                          eps=eps, weight_decay=weight_decay,
+                          piece=UPDATE_PIECE, corrections=bias_corrections)
 
-    return Optimizer(init, update, _in_place(piece, tick))
+    return Optimizer(init, update, _in_place(leaf, tick))
 
 
 def adam(lr: float, **kw) -> Optimizer:

@@ -53,7 +53,10 @@ Counters: ``moe.pairs_kept`` (real tokens' kept (token, expert) pairs,
 a device sum) and ``moe.slots`` (groups x experts x capacity), both in
 ``moe_apply``; ``moe.rows`` (the rows the experts' grouped products run
 over, one per kept pair of a real token, a device sum), in
-``moe._expert_rows``.
+``moe._expert_rows``; ``optim.bytes`` (the least bytes AdamW's steps
+move: each updated element's gradient read, its parameter and both
+moments read and written, a host number), in ``optim.optimizers``'
+AdamW ``update_``.
 """
 from __future__ import annotations
 

@@ -214,7 +214,9 @@ def test_batched_matches_sequential_on_the_card(card, method):
     """Both executors on the card at the tiny size under deterministic
     algorithms: the same knobs and participants, losses within 2e-3,
     and the same launches of every kernel (one wire round trip per
-    delta, the flash kernel in the eval only)."""
+    delta, the flash kernel in the eval only) but the optimizer's: the
+    sequential client's in-place AdamW launches the fused kernel, the
+    batched executor's vmapped functional update does not."""
     from repro_torch.configs.charlm_shakespeare import CONFIG, FL
     from repro_torch.data import load_corpus
     from repro_torch.fl import FederatedEngine
@@ -240,6 +242,8 @@ def test_batched_matches_sequential_on_the_card(card, method):
     finally:
         torch.use_deterministic_algorithms(False)
     _assert_executors_agree(runs["sequential"], runs["batched"])
+    optim_seq = launches["sequential"].pop("adamw_update")
+    assert optim_seq > 0 and launches["batched"].pop("adamw_update") == 0
     assert launches["batched"] == launches["sequential"]
     assert launches["batched"]["flash_attention_bhsd"] == \
         (fl.rounds + 1) * fl.eval_batches * cfg.num_layers

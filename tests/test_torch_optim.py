@@ -201,3 +201,144 @@ def test_server_opt_composition():
     mom = tstrat.ServerOpt(tstrat.FedAvg(fl), "momentum", lr=1.0)
     out = mom.aggregate([{"w": torch.full((4,), 0.5)}])
     assert bool(torch.all(out["w"] > 0))
+
+
+# ---------------------------------------------------------------------------
+# AdamW's update_ through the kernel dispatch (kernels/ops.adamw_update_)
+# ---------------------------------------------------------------------------
+
+
+def _adamw_tree(dtype, moments):
+    params = {k: v.to(dtype) for k, v in _t(_tree(1)).items()}
+    params["s"] = torch.tensor(0.5, dtype=dtype)
+    opt = topt.adamw(1e-2, weight_decay=0.1, moment_dtype=moments)
+    mask = {"a.w": torch.tensor(1.0), "a.b": torch.tensor(0.0),
+            "stack.u": torch.tensor([0.0, 1.0])[:, None, None],
+            "s": torch.tensor(1.0)}
+    return params, opt, mask
+
+
+def _grads(seed, dtype):
+    out = {k: v.to(dtype) for k, v in _t(_tree(seed)).items()}
+    out["s"] = torch.tensor(-0.25, dtype=dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype,moments", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)], ids=["f32", "bf16", "bf16_moments"])
+def test_cpu_update_takes_the_plain_path_and_launches_nothing(
+        dtype, moments, monkeypatch):
+    """On the CPU ``update_`` runs the plain twin (the kernel's wrapper is
+    never called, no launch is counted), and its three steps equal the
+    twin called leaf by leaf after the same count, bit for bit."""
+    from repro_torch.kernels import adamw as ak
+    from repro_torch.kernels import ops, ref
+
+    def refuse(*args, **kw):
+        raise AssertionError("the CUDA kernel's wrapper was called")
+
+    monkeypatch.setattr(ak, "adamw_update", refuse)
+    params, opt, mask = _adamw_tree(dtype, moments)
+    got_p = {k: v.clone() for k, v in params.items()}
+    want_p = {k: v.clone() for k, v in params.items()}
+    got_s, want_s = opt.init(got_p), opt.init(want_p)
+    before = dict(ops.LAUNCHES)
+    for step in range(3):
+        grads = _grads(10 + step, dtype)
+        got_p, got_s = opt.update_({k: g.clone() for k, g in grads.items()},
+                                   got_s, got_p, mask)
+        want_s.count.add_(1)
+        for k, g in grads.items():
+            ref.adamw_update_ref(g, want_p[k], want_s.mu[k], want_s.nu[k],
+                                 mask[k], want_s.count, lr=1e-2, b1=0.9,
+                                 b2=0.999, eps=1e-8, weight_decay=0.1,
+                                 piece=topt.UPDATE_PIECE)
+    assert ops.LAUNCHES == before
+    for k in params:
+        assert torch.equal(got_p[k], want_p[k]), k
+        assert torch.equal(got_s.mu[k], want_s.mu[k]), k
+        assert torch.equal(got_s.nu[k], want_s.nu[k]), k
+        assert got_s.mu[k].dtype == moments
+    assert int(got_s.count) == 3
+    assert torch.equal(got_p["a.b"], params["a.b"])      # frozen
+
+
+def test_meta_update_stays_plain_arithmetic():
+    """On fake ``meta`` tensors (the dry-run, the trace analysis) the
+    update runs the plain ops and launches nothing."""
+    from repro_torch.kernels import ops
+    opt = topt.adamw(1e-3, weight_decay=0.1)
+    params = {"w": torch.empty((3, 4), device="meta"),
+              "b": torch.empty((4,), device="meta")}
+    state = opt.init(params)
+    grads = {k: torch.empty_like(p) for k, p in params.items()}
+    before = dict(ops.LAUNCHES)
+    out, state = opt.update_(grads, state, params)
+    assert ops.LAUNCHES == before
+    assert out["w"].device.type == "meta" and grads == {}
+
+
+def test_optim_bytes_counts_the_least_bytes_moved():
+    """``optim.bytes`` (counted while a profiler session runs, on every
+    path): per updated element the gradient's bytes plus twice the
+    parameter's and both moments' (fp32 gradient, bf16 weights, fp32
+    moments: 24 bytes; all bf16: 14), the frozen elements included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import telemetry
+    n = sum(int(np.prod(s)) for s in SHAPES.values()) + 1
+    for grads_dt, dtype, moments, per in (
+            (torch.float32, torch.bfloat16, torch.float32, 24),
+            (torch.bfloat16, torch.bfloat16, torch.bfloat16, 14),
+            (torch.float32, torch.float32, torch.float32, 28)):
+        params, opt, mask = _adamw_tree(dtype, moments)
+        state = opt.init(params)
+        telemetry.reset()
+        try:
+            with profile(activities=[ProfilerActivity.CPU]):
+                opt.update_(_grads(3, grads_dt), state, params, mask)
+                opt.update_(_grads(4, grads_dt), state, params, mask)
+            got = telemetry.collect()["counters"]
+        finally:
+            telemetry.reset()
+        assert got["optim.bytes"] == 2 * n * per
+    # off, nothing is counted
+    opt.update_(_grads(5, torch.float32), state, params, mask)
+    assert telemetry.collect()["counters"] == {}
+
+
+@pytest.mark.parametrize("mask_shape,shape,inner,expanded", [
+    ((), (6, 5), 30, False),
+    ((1, 1, 1), (2, 3, 4), 24, False),
+    ((2, 1, 1), (2, 3, 4), 12, False),
+    ((2, 3, 1), (2, 3, 4), 4, False),
+    ((2, 3, 4), (2, 3, 4), 1, False),
+    ((1, 3, 1), (2, 3, 4), 1, True),
+    ((4,), (2, 3, 4), 1, True),
+], ids=["0d", "ones", "units", "two_dims", "full", "middle", "trailing"])
+def test_mask_layout_reads_the_broadcast(mask_shape, shape, inner, expanded):
+    """The kernel's view of a mask: one value per ``inner`` consecutive
+    elements, equal to the broadcast mask at every element; a broadcast
+    other than over leading dims is expanded."""
+    from repro_torch.kernels.adamw import mask_layout
+    mask = torch.arange(1, 1 + int(np.prod(mask_shape)),
+                        dtype=torch.bfloat16).reshape(mask_shape)
+    flat, got_inner = mask_layout(mask, torch.Size(shape))
+    assert got_inner == inner and flat.dtype == torch.float32
+    assert flat.is_contiguous() and flat.numel() == (
+        int(np.prod(shape)) if expanded else mask.numel())
+    n = int(np.prod(shape))
+    want = torch.broadcast_to(mask, shape).reshape(-1).to(torch.float32)
+    assert torch.equal(flat[torch.arange(n) // inner], want)
+
+
+def test_kernel_wrapper_refuses_a_cpu_parameter():
+    """The kernel's wrapper raises, before any launch, on a parameter
+    that is not on a card (``ops.adamw_update_`` never sends it one)."""
+    from repro_torch.kernels.adamw import adamw_update
+    p = torch.zeros(8)
+    bc = torch.ones(())
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        adamw_update(p.clone(), p, p.clone(), p.clone(), None, bc, bc, **kw)

@@ -497,3 +497,29 @@ def test_span_sums_split_the_window_idle():
     assert out["sum_s"] == pytest.approx(51.0) and abs(out["sum_gap"]) < 1e-9
     assert out["count"] == {"fl.round": 2, "fl.eval": 2, "fl.localtrain": 2,
                             "fl.draw": 2, "fl.step": 2, "fl.wire": 2}
+
+
+def test_optimizer_roofline_reads_bytes_over_the_optimizers_device_time(
+        monkeypatch):
+    """``optimizer_roofline.train``: the counter ``optim.bytes`` over
+    3.35 TB/s against the ``train.optimizer`` spans' CUDA-event seconds
+    in the window; None without the counter (a program before it),
+    without device operations, or without the spans."""
+    train = [
+        _span(1, "train.accumulate", 1, 2, device_s=0.1),
+        _span(2, "train.optimizer", 3, 4, device_s=0.02),
+        _span(3, "train.optimizer", 5, 6, device_s=0.03),
+        _span(4, "train.optimizer", 120, 130, device_s=9.0)]   # after it
+    nbytes = 0.5 * 3.35e12 * 0.05           # half the bound's time
+    monkeypatch.setattr(telemetry, "collect", lambda: {
+        "spans": train, "counters": {"optim.bytes": nbytes}})
+    rec = _rec([(0, 10)], (0, 100), {"steps": 2})
+    assert _read("optimizer_roofline.train", rec) == pytest.approx(50.0)
+    assert _read("optimizer_roofline.train", _rec([], (0, 100), {})) is None
+    monkeypatch.setattr(telemetry, "collect", lambda: {
+        "spans": train, "counters": {}})
+    assert _read("optimizer_roofline.train", rec) is None
+    assert _read("optimizer_device_share.train", rec) == pytest.approx(0.5)
+    monkeypatch.setattr(telemetry, "collect", lambda: {
+        "spans": train[:1], "counters": {"optim.bytes": nbytes}})
+    assert _read("optimizer_roofline.train", rec) is None
