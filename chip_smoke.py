@@ -1,68 +1,45 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
+"""Checks of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py
 
-Phases, each printing JSON lines; any failure raises and exits non-zero
-before the final line:
+It checks and prints no time: a kernel alone is timed by
+``scripts/profile_port.py``, the system by ``portbench/``. Phases, each
+printing JSON lines; any failure raises and exits non-zero before the
+final line:
 
 1. device: the card's name and power limit (nvidia-smi), the torch and
-   CUDA versions, and the time to build the kernels from
-   ``src/repro_torch/kernels/csrc`` (nvcc, at first use, into ``build/``);
-   then ptxas's registers, spills and static shared memory per kernel.
+   CUDA versions; the kernels built from ``src/repro_torch/kernels/csrc``
+   (nvcc, at first use, into ``build/``), then ptxas's registers, spills
+   and static shared memory per kernel.
 2. kernels: each wire kernel against its plain PyTorch version on the
    card, bit for bit, on every parameter-leaf shape of the full-width
-   char-LM (delta-like values) and on edge cases; then its time per
-   client delta (one launch over the delta's 16 leaves staged into one
-   buffer of 7,428 blocks, as ``compress_decompress`` runs it) from CUDA
-   events, beside its plain version's, a one-call library equivalent
-   where one exists (timed in turns with the kernel, ``time_turns_ms``),
-   and the least time the card could take. Every
-   kernel line also carries ``host_us``: the wrapper's own host cost per
-   call, the host-clock time to issue ~1,000 calls in a row (20 at
-   Gemma2's shapes) divided by their number, the card synchronised
-   after the window and before it.
-   The quantizer also at block widths 128, 512 and 1,024 (its
-   warp-per-block kernel), 100 and 257 (its CTA-per-row kernel) and on
-   an input one value off a 16-byte boundary, bits 8 and 2, bit for bit;
-   the top-k quantizer likewise at widths 128, 256, 384, 512 and 1,024
-   (its warp kernel) and 100, 257 and one value off 16 bytes (its CTA
-   kernel), k in {1, 2, 63, 64, 65, block - 1}, each run checked to take
-   the kernel it should. Every input is led by rows no healthy delta
-   holds (``special_rows``: NaN, +-inf, subnormals, a scale that
-   underflows, ties at the k-th magnitude), where the kernels must still
-   follow the reference; top-k keeps exactly k per block, and every NaN
-   on top of k. The top-k kernel is timed in turns with ``torch.topk``
-   over |x| (``selection_library_ms``: it selects only, so it is not
-   ``library_ms``).
+   char-LM (delta-like values), on edge cases and on the whole delta
+   staged into one buffer as ``compress_decompress`` runs it. The
+   quantizer also at block widths 128, 512 and 1,024 (its warp-per-block
+   kernel), 100 and 257 (its CTA-per-row kernel) and on an input one
+   value off a 16-byte boundary, bits 8 and 2; the top-k quantizer
+   likewise at widths 128, 256, 384, 512 and 1,024 (its warp kernel) and
+   100, 257 and one value off 16 bytes (its CTA kernel), k in {1, 2, 63,
+   64, 65, block - 1}, each run checked to take the kernel it should.
+   Every input is led by rows no healthy delta holds (``special_rows``:
+   NaN, +-inf, subnormals, a scale that underflows, ties at the k-th
+   magnitude), where the kernels must still follow the reference; top-k
+   keeps exactly k per block, and every NaN on top of k.
    The masked-sum fold likewise, both entries (the uint64 one of the main
    path and the limb one of the TPU function's contract), at C in
    {1, 2, 6, 17} clients and n in {1, 511, 513, 1,900,800} columns
    (random and all-ones uint64), the uint64 entry also against
    ``np.add.reduce`` and on a view one column off a 16-byte boundary;
-   both timed at one full-width round's fold (C = 6, n = 1,900,800) in
-   turns with ``torch.sum`` over int64; and the host work of one masked
-   round (fixed point, pairwise masks, the fold's copies). The flash-attention
-   kernel against its plain version over f32 / bf16, D in {24, 64, 128,
-   192, 256} (64: SeamlessM4T's; 192: MLA's q/k width), GQA groups {1,
-   2, 4, 10} (10: RecurrentGemma's 10 heads over 1, at S <= 1,000),
-   causal or not, window {None, 64, 4096}, softcap {None, 50}, S in {1,
-   7, 128, 129, 1000, 8192} and B in {1, 2} (B = 1 only at S = 8192),
-   and non-causal with q and k of different lengths (the
-   cross-attention: Sq in {1, 7, 129} against Sk in {128, 1000, 4096}),
-   at the tolerances below; then its time at one Gemma2 global and one
-   local layer (B = 1, S = 8192), one Phi-3.5-MoE layer (S = 8192, H 32
-   over KVH 8, D 128), one DeepSeek-V3 MLA layer (S = 1,024, H = KVH =
-   128, D 192), one RecurrentGemma local layer (S = 8,192, H 10 over 1,
-   D 256, window 2,048), one SeamlessM4T encoder layer (S = 4,096, H 16,
-   D 64, non-causal) and its decode cross-attention (Sq 1 over Sk
-   4,096), and at the char-LM eval's shape (B = 64, S = 32, H = 8, D =
-   24; and S = 128), beside its plain version, the bound and, where no
-   softcap makes it another function (all but Gemma2's), SDPA (a window
-   as a boolean mask); at Gemma2's shapes SDPA without the softcap
-   (another function, so ``sdpa_no_softcap_ms``, never ``library_ms``)
-   and the SM clock and power draw (nvidia-smi) right after the timed
-   window.
+   and one full-width masked round through ``MaskedSumAggregator``, its
+   mean against the plain mean. The flash-attention kernel against its
+   plain version over f32 / bf16, D in {24, 64, 128, 192, 256}, GQA
+   groups {1, 2, 4, 10} (10 at S <= 1,000), causal or not, window {None,
+   64, 4096}, softcap {None, 50}, S in {1, 7, 128, 129, 1000, 8192} and
+   B in {1, 2} (B = 1 only at S = 8192), and non-causal with q and k of
+   different lengths (Sq in {1, 7, 129} against Sk in {128, 1000,
+   4096}), at the tolerances below; then at each of the main path's
+   shapes (``FLASH_TIMED``).
 3. rounds: the full-width ``charlm-shakespeare`` model through five
    CAFL-L client rounds on the card (policy -> ``train_client`` x 6 ->
    ``aggregate`` -> ``apply_delta`` -> usage -> ``dual_update`` ->
@@ -73,167 +50,88 @@ before the final line:
    client's first microbatch on the card and on the CPU from the same
    parameters and batch.
 4. engine: ``repro_torch.launch.train.main(["--method", "both",
-   "--rounds", "3", ...])`` (FedAvg then CAFL-L through
-   ``FederatedEngine`` with the sync aggregator) in torch's default
-   mode, its histories and checkpoints read back; then the CAFL-L engine
-   with the sync and with the masked aggregator, both under
+   "--rounds", "3", ...])`` in torch's default mode, its histories and
+   checkpoints read back; then the CAFL-L engine with the sync and with
+   the masked aggregator, both under
    ``torch.use_deterministic_algorithms(True)``, held to each other at
    the reference's tolerances (and the sync one set beside
-   ``train.main``'s default-mode CAFL-L run). The masked run carries the
-   runtime sanitizers (``repro_torch.analysis.runtime``):
-   ``SyncGuardCallback`` records each synchronising CUDA call of rounds 2
-   and 3 by call site (a ``sync_round`` line per round; a site outside
-   ``EXPLICIT_READS`` fails) and ``RecompileWatchCallback`` counts kernel
-   library builds and loads and compiles per round (none after round 1).
-   The char-LM eval of every round now runs through the flash kernel;
-   the engine lines count its launches.
-5. fleet: the engine's other pieces at the full-width char-LM (16
-   clients, 6 a round). CAFL-L for 2 rounds with the sequential and
-   with the batched executor under deterministic algorithms, held to
-   each other at 2e-3 with equal knobs, participants and launch counts
-   (but the optimizer's: only the sequential client runs the AdamW
-   kernel),
-   with each executor's seconds per round and, under torch.profiler,
-   its device kernel launches per client microbatch and busy share in
-   one more LocalTrain round. Then ``examples/async_fleet.py``'s fleet
-   on the wall clock (two tiers, half at compute_scale 2.0, deadline
-   stragglers at 1.1 with jitter 0.2, the batched executor), 3 rounds
-   with the sync barrier and with FedBuff (buffer 3): simulated
-   seconds, reports applied, late and lost, peak memory; FedBuff must
-   apply late reports and the barrier lose them. Then one 2-round run
-   stacking ``cafl+adam``, the PI controller, the deadline-aware knob
-   policy, ``paper+wire_mb+latency``, resource-aware sampling,
-   Bernoulli churn, deadline stragglers and ``wire_topk = 64``: one
-   top-k launch per compressed delta, every one on the warp kernel.
-6. analysis: the schedule gate (``repro_torch.analysis.sched``) on the
-   card: its three scenarios (``sync_ties``, ``masked_shuffle``,
-   ``fedbuff_wall``) with the char-LM at full width and depth (1,900,800
-   parameters) in the gate's own federated setting (``SCHED_SETTING``),
-   4, 4 and 8 adversarial tie permutations as in the reference, under
-   deterministic algorithms. Each scenario must be ok (every replay
-   bit-identical to the production schedule), with 0 races, something
-   swapped and no problem; ``masked_shuffle`` must fold through
-   ``masked_sum_u64`` in every replay, and every round whose knobs have
-   q >= 1 must launch the wire kernels. One ``sched`` line per scenario.
-   Then the trace analysis (``repro_torch.analysis.trace``, ``drive_trace``):
-   the static trace of the 11 registered entries (``trace`` and
-   ``trace_gate`` lines), which must equal ``TRACE_BUDGETS_TORCH.json``
-   row for row with 0 findings and no problem; each entry run once on
-   the card at its declared shape (``trace_run``): finite outputs, its
-   static peak (each storage rounded to the allocator's 512-byte block)
-   over ``MemTracker``'s peak within the reference's band [0.5, 4.0],
-   the wire tuples and the fold equal to the CPU twins' bit for bit,
-   ``quantize_blocks``, ``quantize_topk_blocks`` and ``masked_sum_u64``
-   launched, ``masked_sum_limbs`` not; then the client's local step at
-   the char-LM's full width at b 8 and 32 (``trace_full``): static peak
-   over ``max_memory_allocated`` (arguments + outputs + temporaries,
-   after a warm-up run) within the band, and the gate's memory units
-   from the static and from the measured peaks side by side
-   (``trace_full_gate``; a differing verdict is printed, not failed).
-7. serve: Gemma2-9B at full width and depth (42 layers, d 3584, vocab
-   256,000, bf16; weights drawn on the card from
-   ``torch.Generator(device="cuda").manual_seed(0)``) through
-   ``launch.steps.make_prefill_step`` on one 8,192-token prompt (longer
-   than the 4,096 window) and 16 greedy ``make_decode_step`` steps: 42
-   flash launches per prefill; the last-token logits against the same
-   model with the plain attention in its place; decode logits after the
+   ``train.main``'s CAFL-L run). The masked run carries the runtime
+   sanitizers (``repro_torch.analysis.runtime``): ``SyncGuardCallback``
+   records each synchronising CUDA call of rounds 2 and 3 by call site (a
+   ``sync_round`` line per round; a site outside ``EXPLICIT_READS``
+   fails) and ``RecompileWatchCallback`` counts kernel library builds
+   and loads and compiles per round (none after round 1).
+5. fleet: CAFL-L for 2 rounds with the sequential and with the batched
+   executor under deterministic algorithms, held to each other at 2e-3
+   with equal knobs, participants and launch counts (but the
+   optimizer's: only the sequential client runs the AdamW kernel). Then
+   ``examples/async_fleet.py``'s fleet on the wall clock, 3 rounds with
+   the sync barrier and with FedBuff (buffer 3): FedBuff must apply late
+   reports and the barrier lose them. Then one 2-round run stacking
+   ``cafl+adam``, the PI controller, the deadline-aware knob policy,
+   ``paper+wire_mb+latency``, resource-aware sampling, Bernoulli churn,
+   deadline stragglers and ``wire_topk = 64``: one top-k launch per
+   compressed delta, every one on the warp kernel.
+6. analysis: the schedule gate's three scenarios (``sync_ties``,
+   ``masked_shuffle``, ``fedbuff_wall``) with the char-LM at full width
+   in the gate's own setting (``SCHED_SETTING``), 4, 4 and 8 tie
+   permutations, under deterministic algorithms: each ok, 0 races,
+   something swapped; ``masked_shuffle`` folds through
+   ``masked_sum_u64`` in every replay, and every q >= 1 round launches
+   the wire kernels. Then the trace analysis (``drive_trace``): the
+   static trace equal to ``TRACE_BUDGETS_TORCH.json`` with 0 findings;
+   each of the 11 entries run once on the card, its static peak over
+   ``MemTracker``'s within [0.5, 4.0], the wire tuples and the fold equal
+   to the CPU twins'; the client's local step at full width at b 8 and
+   32, static peak over ``max_memory_allocated`` within the band.
+7. serve (``drive_serving``): Gemma2-9B at full width and depth (bf16,
+   weights drawn on the card) on one 8,192-token prompt and 16 greedy
+   decode steps: 42 flash launches per prefill, all on the tensor-core
+   variant (``mma_bf16``); the last-token logits against the same model
+   with the plain attention in its place (a); decode logits after the
    first and the last step against a prefill over the prompt plus the
-   tokens so far; prefill s and tokens/s, decode ms per token, peak
-   memory, the kernel's share of prefill device time, and the SM clock
-   and power draw right after the timed prefill. All 42 flash launches
-   must take the tensor-core variant (``mma_bf16``). A reduction
-   of the ``prefill_32k`` shape (B = 32, S = 32,768) in batch and
-   length; widths unchanged.
-   Then the same serving path (``drive_serving``) at two MoE configs,
-   full width, depth cut to fit the card: ``serve_moe``, Phi-3.5-MoE
-   (16 of 32 layers, 16 experts top 2, 21.1 B parameters, bf16) on one
-   8,192-token prompt and 16 decode steps; ``serve_mla``, DeepSeek-V3
-   (4 of 61 layers: the 3 dense prefix layers and 1 MoE layer of 256
-   experts top 8 and a shared expert, MLA, 15.5 B parameters) on one
-   1,024-token prompt (one MoE group) and 8 decode steps through the
-   absorbed MLA decode. The kernel-vs-plain check runs at the config's
-   capacity factor 1.25; the decode-vs-prefill check at one where the
-   capacity is the group size (8 and 32), since a one-token decode never
-   drops a token; each line prints the drop share at 1.25, the routing
-   flips of each check per MoE layer, and the peak memory of its phase.
-   Then the recurrent and encoder-decoder configs through the same
-   path, full width and depth: ``serve_rec``, RecurrentGemma-2B (26
-   layers: 18 RG-LRU and 8 local attention, 2.9 B parameters) on one
-   8,192-token prompt (the local caches roll from the first step);
-   ``serve_xlstm``, xLSTM-1.3B (48 blocks, 3.6 B parameters, no
-   attention: no kernel and no check (a)) on one 2,048-token prompt (each
-   sLSTM layer steps once per token on the host); ``serve_encdec``,
-   SeamlessM4T-medium (12 + 12 layers) on ``synthetic_batch(cfg, 1,
-   8192)``, 4,096 source frames and 4,096 target tokens, whose decode
-   launches the kernel once per layer and step (the cross-attention at
-   Sq 1); 16 decode steps each. Every serving line carries the decode
-   step's floor: weights and decode caches read once at 3.35 TB/s.
-   Bound: 2 x 2^-8 x sqrt(2 L) for L layers (the encoder's counted).
-   Then ``serve_smoke``: each zoo config but Gemma2 (Qwen2,
-   Mistral-Large, Minitron, PaliGemma, Phi-3.5-MoE, DeepSeek-V3,
-   RecurrentGemma, xLSTM, SeamlessM4T) at its SMOKE size, f32, prefill
-   on the card against the CPU from the same weights, within 1e-4.
-8. train: ``launch.steps.make_train_step`` (the reference's train step,
-   each stacked unit and loss chunk recomputed in the backward pass).
-   First the char-LM and each zoo config at SMOKE size, f32: 2 AdamW
-   steps (2 microbatches) on the card under deterministic algorithms and
-   2 on the CPU from the same weights: losses within 1e-4 relative, each
-   leaf's change within 5e-2 of its largest element and Adam's moments
-   within 1e-4 of theirs. Then each zoo config at full width in bf16,
-   depth cut to fit (``TRAIN_DEPTH``: Gemma2 13 of 42, Qwen2 2,
-   Mistral-Large 2, Minitron 8, PaliGemma 18 of 18, Phi-3.5-MoE 2,
-   DeepSeek-V3 2, RecurrentGemma 26 of 26, xLSTM 48 of 48, SeamlessM4T
-   12 + 12),
-   weights drawn on the card: 2 AdamW steps on one batch of 2 x 4,096
-   tokens (xLSTM: 2 x 64) in 2 microbatches under the freezing mask at
-   k = 1; the loss finite and falling, every frozen part bit-equal, no
-   flash launch. Each line: the step's seconds, peak memory beside the
-   port's dry-run estimate of the same setting (``launch.dryrun``, run in
-   worker processes meanwhile), MFU against 989 TFLOP/s; Gemma2's line
-   is followed by its dry-run record's roofline.
+   tokens so far (b); peak memory. Then Phi-3.5-MoE (16 of 32 layers)
+   and DeepSeek-V3 (4 of 61 layers), full width: (b) at a capacity
+   factor where nothing drops, its prefill on the experts decode chose
+   (``routing_replay``), routing flips and drop shares printed;
+   RecurrentGemma-2B, xLSTM-1.3B (check (b) in f32) and
+   SeamlessM4T-medium at full width and depth. Bound: 2 x 2^-8 x
+   sqrt(2 L) for L layers. Then ``serve_smoke``: each zoo config but
+   Gemma2 at its SMOKE size, f32, prefill on the card against the CPU,
+   within 1e-4.
+8. train: ``launch.steps.make_train_step``. The char-LM and each zoo
+   config at SMOKE size, f32, 2 AdamW steps (2 microbatches) on the card
+   (deterministic) and on the CPU from the same weights: losses,
+   each leaf's change and Adam's moments within their bounds. Then each
+   zoo config at full width in bf16, depth ``TRAIN_DEPTH``, 2 AdamW steps
+   of 2 x 4,096 tokens (xLSTM 2 x 64) in 2 microbatches under the
+   freezing mask at k = 1: the loss finite and falling, every frozen
+   part bit-equal, no flash launch, peak memory beside the port's
+   dry-run estimate (``launch.dryrun``, in worker processes meanwhile).
    Then the fused AdamW kernel against the plain piece path, bit for bit
-   (``adamw`` lines): the expert leaves of one full-width Phi-3.5-MoE
-   layer, and every parameter of Phi-3.5-MoE's full-width train step at
-   the setting above, 2 steps each, one kernel launch a parameter.
-9. mesh: rank 0 of the single production mesh (256 cards as data 16 x
-   model 16, ``launch.mesh.use_mesh`` over a fake process group, the
-   ``default`` recipe of ``launch.specs``), Gemma2-9B at full width and
-   depth (42 layers, weights seeded on the card), each cell a rank's
-   share of ``INPUT_SHAPES``: ``train_4k`` (16 x 4,096, two
-   ``make_train_step`` steps with the recompute), ``prefill_32k`` (2 x
-   32,768, twice; the flash kernel on the rank's one query head, through
-   ``ops.attention_local``), ``decode_32k`` (8 sequences over a cache
-   split over model, 4 steps). The port's CPU dry-run of each cell
-   (``dryrun --mesh single``) runs in worker processes meanwhile; the
-   card runs the dry-run's own step and arguments
-   (``dryrun._step_and_args``: local shards on the card, then seeded).
-   One ``mesh`` line a cell: every parameter's placements as
-   ``specs.param_shardings`` gives them; the first run's collectives
-   (``_c10d_functional``, per type, counted by the dry-run's own
-   ``_Traffic``) equal in count and bytes to the record's; peak memory
-   over the record's ``per_device_total_gb`` in [0.8, 1.25]; the timed
-   runs' seconds (CUDA events) beside the record's t_compute_s +
-   t_memory_s (printed); host syncs of the timed runs (printed); the
-   flash kernel launched under the prefill and not under the train
-   step, and, on one layer's seeded share fed as the prefill feeds it
-   (``ops.flash_attention`` on DTensors: rank 0's query head, its KV
-   head sliced from the gathered k/v), equal to its twin within the
-   sweep's bound. The fake group moves no data: no value that crosses a
-   collective is checked.
-10. a ``kernel_off_path`` line for the limb entry of the masked sum (all
-   the summary's keys; no main path runs it, so its launches must be 0),
-   the ``{"kernels": [...]}`` summary of the main paths' kernels (the
-   flash row's launches include the mesh phase's), the nvidia-smi line,
-   and the final ``{"ok": true, ...}`` line.
+   (``adamw`` lines).
+9. mesh: rank 0 of the 256-card mesh (data 16 x model 16, the
+   ``default`` recipe, a fake process group), Gemma2-9B at full width and
+   depth, each cell a rank's share of ``INPUT_SHAPES``: ``train_4k``,
+   ``prefill_32k`` and ``decode_32k``, run on the dry-run's own step and
+   arguments (``dryrun._step_and_args``), seeded, while the CPU dry-run
+   of each cell runs in worker processes. One ``mesh`` line a cell:
+   placements as ``specs.param_shardings`` gives them; the first run's
+   collectives equal in count and bytes per type to the record's; peak
+   memory over the record's in [0.8, 1.25]; host syncs of the later runs
+   (printed); the flash kernel launched under the prefill and not under
+   the train step, and on one layer's seeded share equal to its twin
+   within the sweep's bound. The fake group moves no data.
+10. the run's ``total`` seconds, a ``kernel_off_path`` line for the limb
+   entry of the masked sum (no main path runs it: its launches must be
+   0), the ``{"kernels": [...]}`` summary of the main paths' kernels
+   (launches and largest error), the nvidia-smi line, and the final
+   ``{"ok": true, ...}`` line.
 
-Each path of phases 3 to 9 (each engine run, each gate scenario, each
-timed prefill, each train step, each mesh cell) runs with the launch
-counters zeroed just before it and read just after; phases 3 to 7 fail
-if a kernel of their path was never launched, phase 8 if the flash
-kernel was launched under a gradient, phase 9 on either.
-
-Where the time goes under torch.profiler is ``scripts/profile_port.py``'s
-work, not this script's.
+Each path of phases 3 to 9 runs with the launch counters zeroed just
+before it and read just after; phases 3 to 7 fail if a kernel of their
+path was never launched, phase 8 if the flash kernel was launched under
+a gradient, phase 9 on either.
 
 Needs one card and the CUDA toolkit (nvcc); imports neither JAX nor the
 JAX package.
@@ -247,7 +145,6 @@ import json
 import math
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -263,6 +160,18 @@ import torch  # noqa: E402
 BLOCK = 256
 SOURCE = "src/repro_torch/kernels/csrc/wire_kernels.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+#: the summary's kernels of the main paths: (name, the TPU kernel it
+#: replaces, its source); and the limb entry of the masked sum, which
+#: serves the TPU function's contract and no main path
+MAIN_KERNELS = (
+    ("quantize_blocks", "src/repro/kernels/quantize.py:47", SOURCE),
+    ("dequantize_blocks", "src/repro/kernels/quantize.py:65", SOURCE),
+    ("quantize_topk_blocks", "src/repro/kernels/wire.py:84", SOURCE),
+    ("masked_sum_u64", "src/repro/kernels/wire.py:130", SOURCE),
+    ("flash_attention_bhsd", "src/repro/kernels/flash_attention.py:90",
+     FLASH_SOURCE))
+OFF_PATH_KERNEL = ("masked_sum_limbs", "src/repro/kernels/wire.py:130",
+                   SOURCE)
 #: rounds of each engine run (train.main's FedAvg and CAFL-L, the masked
 #: CAFL-L run)
 ENGINE_ROUNDS = 3
@@ -304,14 +213,6 @@ def topk_ks(block: int):
     return sorted({1, 2, 63, 64, 65, block - 1})
 
 
-#: per-card data-sheet rates (NVIDIA, dense, no sparsity): device-memory
-#: bytes/s, fp32 (non-tensor-core) operations/s and bf16 tensor-core
-#: operations/s
-CARD_RATES = {
-    "H100 PCIe": (2.0e12, 51e12, 756e12),
-    "H100 NVL": (3.9e12, 60e12, 835e12),
-    "H100": (3.35e12, 67e12, 989e12),        # SXM
-}
 #: the flash kernel's sweep (see the docstring); heads are KVH = 2 times
 #: the group size
 FLASH_DTYPES = ("float32", "bfloat16")
@@ -463,7 +364,7 @@ TRAIN_SMOKE_STATE_RTOL = 1e-4
 #: train step (16 x 4,096 a rank) twice, the prefill (2 x 32,768) twice,
 #: the decode step (8 over a 32,768-slot cache split over model, 32,000
 #: tokens in) four times; the first run of each counts the collectives,
-#: the others are timed. Peak memory over the port's CPU dry-run record
+#: the others the host syncs. Peak memory over the port's CPU dry-run record
 #: of the same cell within MESH_MEMORY_BAND.
 MESH_ARCH = "gemma2-9b"
 MESH_RUNS = {"train_4k": 2, "prefill_32k": 2, "decode_32k": 4}
@@ -489,79 +390,6 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def smi_clocks() -> dict:
-    """The card's SM clock (MHz) and power draw (W) now, from nvidia-smi."""
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True)
-    clock, power = out.stdout.strip().splitlines()[0].split(",")
-    return {"clocks_sm_mhz": float(clock), "power_draw_w": float(power)}
-
-
-def host_us(fn, calls: int = 1000) -> float:
-    """The host's cost of one call of ``fn``: the host-clock time to issue
-    ``calls`` calls in a row, per call, with the card synchronised before
-    and after the window (the closing synchronize is not counted)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    issued = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return issued / calls * 1e6
-
-
-def card_rates(name: str):
-    """Data-sheet rates of the card ``name``; raises for a card without
-    an entry, so no bound is computed from another card's peaks."""
-    for key, rates in CARD_RATES.items():
-        if all(part in name for part in key.split()):
-            return key, rates
-    raise SmokeFailure(f"no data-sheet rates for {name!r}: add it to "
-                       f"CARD_RATES")
-
-
-def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median wall time of ``fn`` on the card, from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def time_turns_ms(*fns, reps: int = 100, warmup: int = 3):
-    """Median CUDA-event time of each of ``fns``, timed in turns (each
-    round in the other order: a b, b a, ...) so that drift in the host's
-    state falls on all of them alike: a kernel against its library call."""
-    for fn in fns:
-        for _ in range(warmup):
-            fn()
-    torch.cuda.synchronize()
-    times = [[] for _ in fns]
-    for i in range(reps):
-        order = range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))
-        for j in order:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fns[j]()
-            end.record()
-            end.synchronize()
-            times[j].append(start.elapsed_time(end))
-    return [statistics.median(t) for t in times]
 
 
 def delta_like(gen: torch.Generator, shape) -> torch.Tensor:
@@ -778,82 +606,6 @@ def check_kernels(leaves, dev) -> dict:
     return worst
 
 
-def kernel_records(leaves, card_name: str):
-    """Time each kernel per client delta (one launch over the 16 leaves
-    staged into one buffer, as ``compress_decompress`` runs it) beside its
-    plain version, the library call where one exists, and its bound."""
-    from repro_torch.core.compression import stage_blocks
-    from repro_torch.kernels import quantize, ref, wire
-    _, (bw, fp32_rate, _) = card_rates(card_name)
-    buf, _ = stage_blocks(leaves, BLOCK)
-    n = buf.numel()                                   # padded values
-    nb = buf.shape[0]                                 # blocks
-    bits, k = 2, 64
-    codes, scales = quantize.quantize_blocks(buf, bits)
-
-    def bound(bytes_, ops):
-        t_bytes, t_ops = bytes_ / bw * 1e3, ops / fp32_rate * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
-
-    recs = []
-    # quantize: read x, write codes + scales; ~6 fp32 ops per value
-    # (abs, max, divide, rint, two clamps)
-    b_ms, b_by = bound(n * 4 + n + nb * 4, 6 * n)
-    recs.append({
-        "name": "quantize_blocks",
-        "replaces": "src/repro/kernels/quantize.py:47",
-        "ms": time_ms(lambda: quantize.quantize_blocks(buf, bits)),
-        "plain_ms": time_ms(lambda: ref.quantize_blocks_ref(buf, bits)),
-        "host_us": host_us(lambda: quantize.quantize_blocks(buf, bits)),
-        "library_ms": None,
-        "bound_ms": b_ms, "bound_by": b_by})
-    # dequantize: read codes + scales, write f32; one multiply per value.
-    # The main path decodes into the staged buffer (out=), so the library
-    # call writes into a given buffer too; the allocating call beside it
-    out = torch.empty_like(buf)
-    b_ms, b_by = bound(n + nb * 4 + n * 4, n)
-    ms, library, library_alloc = time_turns_ms(
-        lambda: quantize.dequantize_blocks(codes, scales, out=out),
-        lambda: torch.mul(codes, scales[:, None], out=out),
-        lambda: torch.mul(codes, scales[:, None]))
-    recs.append({
-        "name": "dequantize_blocks",
-        "replaces": "src/repro/kernels/quantize.py:65",
-        "ms": ms,
-        "plain_ms": time_ms(lambda: ref.dequantize_blocks_ref(codes,
-                                                              scales)),
-        "host_us": host_us(lambda: quantize.dequantize_blocks(codes, scales,
-                                                              out=out)),
-        "library_ms": library, "library_alloc_ms": library_alloc,
-        "bound_ms": b_ms, "bound_by": b_by})
-    # top-k: read x, write codes + mask + scales. The function needs the
-    # quantizer's ~6 ops per value plus a few to select k of a block (a
-    # compare with the k-th magnitude and a tie count: 2). No PyTorch call
-    # computes it; torch.topk over |x| selects only (with its own tie
-    # order, and no codes), so it is a yardstick apart from library_ms
-    b_ms, b_by = bound(n * 4 + 2 * n + nb * 4, 8 * n)
-    ms, selection = time_turns_ms(
-        lambda: wire.quantize_topk_blocks(buf, bits, k),
-        lambda: torch.topk(buf.abs(), k, dim=1, sorted=False))
-    recs.append({
-        "name": "quantize_topk_blocks",
-        "replaces": "src/repro/kernels/wire.py:84",
-        "ms": ms,
-        "plain_ms": time_ms(lambda: ref.quantize_topk_blocks_ref(buf, bits,
-                                                                 k),
-                            reps=5, warmup=1),
-        "host_us": host_us(lambda: wire.quantize_topk_blocks(buf, bits, k)),
-        "library_ms": None, "selection_library_ms": selection,
-        "bound_ms": b_ms, "bound_by": b_by})
-    for r in recs:
-        r.update(route="cuda", source=SOURCE)
-    return recs, {"values": n, "blocks": nb, "leaves": len(leaves),
-                  "launches_per_delta": 1, "bits": bits, "k": k,
-                  "bytes_per_s": bw,
-                  "fp32_ops_per_s": fp32_rate}
-
-
 def check_masked_sum(dev) -> dict:
     """Both masked-sum entries against their plain versions on the card,
     bit for bit, on random and all-ones uint64 cohorts: ``masked_sum_u64``
@@ -915,53 +667,10 @@ def check_masked_sum(dev) -> dict:
     return worst
 
 
-def masked_sum_records(dev, card_name: str):
-    """Time one full-width round's fold (C = 6, n = 1,900,800) on the card
-    through each entry, in turns with ``torch.sum`` over int64, beside
-    each entry's plain version: [the uint64 entry (the main path's), the
-    limb entry]."""
-    from repro_torch.kernels import ops, ref, wire
-    _, (bw, _, _) = card_rates(card_name)
-    c, n = SUM_TIMED
-    vals = np.random.default_rng(12).integers(0, 2 ** 64, size=(c, n),
-                                              dtype=np.uint64)
-    hi, lo = (torch.from_numpy(x).to(dev) for x in ops.split_limbs(vals))
-    stacked = torch.from_numpy(vals.view(np.int64)).to(dev)
-    # read C*n uint64 (as values or as limbs), write n uint64
-    bytes_ = 8 * c * n + 8 * n
-    u64_ms, limbs_ms, library = time_turns_ms(
-        lambda: wire.masked_sum_u64(stacked),
-        lambda: wire.masked_sum_limbs(hi, lo),
-        lambda: torch.sum(stacked, dim=0))
-    # host cost from 100 calls, which stay inside the launch queue: 1,000
-    # calls of a 34 us kernel may outrun the card and wait on it
-    # (``host_us_1000_calls``, beside it)
-    common = {"route": "cuda", "source": SOURCE,
-              "replaces": "src/repro/kernels/wire.py:130",
-              "library_ms": library, "bound_ms": bytes_ / bw * 1e3,
-              "bound_by": "bytes", "clients": c, "columns": n,
-              "bytes_per_s": bw}
-    return [
-        {"name": "masked_sum_u64", "entry": "uint64 bits (the main path)",
-         "ms": u64_ms,
-         "plain_ms": time_ms(lambda: ref.masked_sum_u64_ref(stacked)),
-         "host_us": host_us(lambda: wire.masked_sum_u64(stacked), calls=100),
-         "host_us_1000_calls": host_us(lambda: wire.masked_sum_u64(stacked)),
-         **common},
-        {"name": "masked_sum_limbs", "entry": "(hi, lo) uint32 limbs",
-         "ms": limbs_ms,
-         "plain_ms": time_ms(lambda: ref.masked_sum_ref(hi, lo)),
-         "host_us": host_us(lambda: wire.masked_sum_limbs(hi, lo),
-                            calls=100),
-         "host_us_1000_calls": host_us(lambda: wire.masked_sum_limbs(hi, lo)),
-         **common}]
-
-
-def masked_round_host(dev, model) -> dict:
-    """The host side of one full-width masked round, timed on the host
-    clock: each of 6 clients' ``submit`` (fixed point + 5 pairwise masks
-    of 1.9M uint64) and the ``flush`` (stack, the fold's copies and
-    launch, the mean back on the card)."""
+def masked_round(dev, model):
+    """One full-width masked round, not yet run: a ``MaskedSumAggregator``
+    begun over FedAvg's 6 clients, one report per client (the delta:
+    1e-3 x the parameters) -> (aggregator, reports, parameters)."""
     from repro_torch.configs.charlm_shakespeare import FL
     from repro_torch.core.policy import fedavg_knobs
     from repro_torch.fl import (ClientInfo, ClientReport, DeviceProfile,
@@ -973,26 +682,34 @@ def masked_round_host(dev, model) -> dict:
     agg = MaskedSumAggregator()
     agg.reset(FedAvg(FL).aggregate)
     agg.begin_round(1, cohort)
-    submit_s = []
-    for ci in cohort:
-        delta = {k: v * 1e-3 for k, v in params.items()}
-        t0 = time.perf_counter()
-        agg.submit(ClientReport(client=ci, delta=delta, weight=1.0, knobs=kn,
-                                policy_knobs=kn, round_trained=1))
-        submit_s.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    update = agg.flush(1)
-    torch.cuda.synchronize()
-    flush_s = time.perf_counter() - t0
+    reports = [ClientReport(client=ci, delta={k: v * 1e-3 for k, v in
+                                              params.items()},
+                            weight=1.0, knobs=kn, policy_knobs=kn,
+                            round_trained=1) for ci in cohort]
+    return agg, reports, params
+
+
+def check_masked_mean(update, params) -> float:
+    """The masked round's mean back on the card and within 1e-6 of the
+    plain mean -> its largest |error|."""
     mean = update.delta
     check(all(t.is_cuda for t in mean.values()),
           "the masked mean did not come back on the card")
     err = max(float((mean[k] - params[k] * 1e-3).abs().max()) for k in mean)
     check(err <= 1e-6, f"masked mean off the plain mean by {err}")
-    return {"phase": "masked_host", "clients": len(cohort),
+    return err
+
+
+def check_masked_round(dev, model) -> dict:
+    """One full-width masked round (``masked_round``): each client's
+    ``submit`` (fixed point + 5 pairwise masks of 1.9M uint64), then the
+    ``flush`` (the fold, the mean back on the card)."""
+    agg, reports, params = masked_round(dev, model)
+    for report in reports:
+        agg.submit(report)
+    err = check_masked_mean(agg.flush(1), params)
+    return {"phase": "masked_round", "clients": len(reports),
             "columns": sum(t.numel() for t in params.values()),
-            "submit_s": submit_s, "flush_s": flush_s,
-            "round_host_s": sum(submit_s) + flush_s,
             "mean_max_abs_err": err}
 
 
@@ -1026,7 +743,6 @@ def check_flash(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(21)
     worst = dict.fromkeys(FLASH_DTYPES, 0.0)
     cases = 0
-    t0 = time.perf_counter()
 
     def hold(q, k, v, what, **kw):
         nonlocal cases
@@ -1062,18 +778,8 @@ def check_flash(dev) -> dict:
                     for softcap in (None, 50.0):
                         hold(q, k, v, f"Sq={sq} Sk={sk} D={d} g={g}",
                              causal=False, softcap=softcap)
-    return {"phase": "flash_check", "cases": cases,
-            "seconds": time.perf_counter() - t0, "max_abs_err": worst,
+    return {"phase": "flash_check", "cases": cases, "max_abs_err": worst,
             "f32_atol": FLASH_F32_ATOL, "bf16_bound": "1 bf16 ulp + f32_atol"}
-
-
-def flash_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """Unmasked (q, k) pairs of one (batch, head): the work this input
-    needs."""
-    q = np.arange(sq)
-    hi = np.minimum(q, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 #: (label, B, Sq, Sk, H, KVH, D, dtype, causal, window, softcap) at the
@@ -1104,54 +810,14 @@ FLASH_TIMED = (
 )
 
 
-def flash_bound_ms(q, k, window, card_name: str, causal: bool = True):
-    """The least time the card could take for one flash call on q
-    (B,Sq,H,D), k (B,Sk,KVH,D): the larger of its bytes (q, k, v read
-    once, the output written once) over the memory rate and the
-    operations its unmasked pairs need (4 D each) over the rate of its
-    dtype (bf16 tensor cores, fp32 CUDA cores) -> (ms, details)."""
-    _, (bw, fp32_rate, bf16_rate) = card_rates(card_name)
-    b, sq, h, d = q.shape
-    bytes_ = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    ops_ = 4 * b * h * d * flash_pairs(sq, k.shape[1], causal, window)
-    rate = bf16_rate if q.dtype == torch.bfloat16 else fp32_rate
-    t_bytes, t_ops = bytes_ / bw * 1e3, ops_ / rate * 1e3
-    return max(t_bytes, t_ops), {
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": bytes_, "operations": ops_, "ops_per_s": rate}
-
-
-def sdpa_call(q, k, v, window, causal: bool = True):
-    """SDPA on (B,S,H,D) tensors, causal or not (and banded by ``window``
-    through a boolean mask), without a softcap, as a function of no
-    arguments."""
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    gqa = k.shape[2] != q.shape[2]
-    if window is None:
-        return lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=gqa)
-    pos = torch.arange(q.shape[1], device=q.device)
-    mask = ((pos[None, :] <= pos[:, None])
-            & (pos[None, :] > pos[:, None] - window))
-    return lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
-
-
-def flash_records(dev, card_name: str):
-    """Hold the flash kernel to its plain version at the main path's
-    shapes (the sweep's bounds; fails outside them), and time it there
-    beside the plain version, SDPA where it computes the same function
-    (no softcap: the char-LM, Phi-3.5-MoE's layer, DeepSeek-V3's MLA
-    layer with v zero-padded to 192, as the model runs it, RecurrentGemma's
-    local layer with its window as a boolean mask, SeamlessM4T's
-    non-causal encoder layer and decode cross-attention), and the bound;
-    at Gemma2's shapes also SDPA without the softcap
-    (``sdpa_no_softcap_ms``: not the same function); at Sq >= 4,096 the
-    SM clock and power draw right after the kernel's timed window."""
+def check_flash_shapes(dev) -> float:
+    """The flash kernel against its plain version at each of the main
+    path's shapes (``FLASH_TIMED``), at the sweep's bounds; a
+    ``flash_shape`` line each -> the largest |kernel - plain|."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import variant
     gen = torch.Generator(device=dev).manual_seed(22)
-    recs = []
+    worst = 0.0
     for (label, b, sq, sk, h, kvh, d, dtype, causal, window,
          softcap) in FLASH_TIMED:
         q, k, v = flash_inputs(gen, b, sq, h, kvh, d, dtype, dev, sk=sk)
@@ -1162,42 +828,12 @@ def flash_records(dev, card_name: str):
         check(got.dtype == q.dtype and ok,
               f"flash_attention_bhsd differs at the {label} shape: max "
               f"|gap| {gap}")
-        del got, want
-        big = sq >= 4096
-        kernel = lambda: ops.flash_attention(q, k, v, **kw)  # noqa: E731
-        library = None
-        if softcap is None:
-            # the same function in one PyTorch call: timed in turns
-            ms, library = time_turns_ms(
-                kernel, sdpa_call(q, k, v, window, causal),
-                reps=10 if big else 100)
-        else:
-            ms = time_ms(kernel, reps=10 if big else 100)
-        rec = {
-            "name": "flash_attention_bhsd", "route": "cuda",
-            "source": FLASH_SOURCE,
-            "replaces": "src/repro/kernels/flash_attention.py:90",
-            "variant": variant(q.dtype, d),
-            "shape": label, "batch": b, "seq": sq, "seq_k": sk, "heads": h,
-            "kv_heads": kvh, "head_dim": d, "dtype": dtype, "causal": causal,
-            "window": window, "softcap": softcap, "max_abs_err": gap,
-            "ms": ms}
-        if big:
-            rec.update(smi_clocks())
-        rec["host_us"] = host_us(kernel, calls=20 if big else 1000)
-        rec["plain_ms"] = time_ms(lambda: ref.flash_attention_ref(q, k, v,
-                                                                  **kw),
-                                  reps=3 if big else 30, warmup=1)
-        rec["library_ms"] = library
-        if big and softcap is not None:
-            rec["sdpa_no_softcap_ms"] = time_ms(
-                sdpa_call(q, k, v, window, causal), reps=10)
-        rec["bound_ms"], bound = flash_bound_ms(q, k, window, card_name,
-                                                causal)
-        rec.update(bound)
-        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-        recs.append(rec)
-    return recs
+        emit({"phase": "flash_shape", "shape": label,
+              "variant": variant(q.dtype, d), "batch": b, "seq": sq,
+              "seq_k": sk, "heads": h, "kv_heads": kvh, "head_dim": d,
+              "dtype": dtype, **kw, "max_abs_err": gap})
+        worst = max(worst, gap)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1266,7 +902,6 @@ def drive_rounds(dev, cfg, fl, ds):
                                    for r in RESOURCES})
         run_fl = fl.replace(wire_topk=topk)
         runner = ClientRunner(model, run_fl, data, resources, device=dev)
-        t0 = time.perf_counter()
         val_loss = evaluate(params)
         kn = policy(duals, run_fl)
         clients = rng.choice(fl.num_clients, size=fl.clients_per_round,
@@ -1284,7 +919,6 @@ def drive_rounds(dev, cfg, fl, ds):
         mean = {r: sum(u[r] for u in usages) / len(usages)
                 for r in RESOURCES}
         duals = dual_update(duals, mean, fl.budgets, fl.duals)
-        seconds = time.perf_counter() - t0
 
         n_active = n_active_closed_form(cfg, params, kn.k)
         want_mb = wire_mb_closed_form(n_active, kn.q, topk)
@@ -1296,8 +930,7 @@ def drive_rounds(dev, cfg, fl, ds):
                "wire_mb_closed_form": want_mb,
                "params_active": results[0].params_active,
                "launches": launched, "topk_kernels": topk_kernels,
-               "duals_after": dict(duals.lam),
-               "seconds": seconds}
+               "duals_after": dict(duals.lam)}
         emit(rec)
         records.append(rec)
 
@@ -1373,7 +1006,7 @@ def engine_rounds(method: str, aggregator: str, mode: str, history) -> None:
               "aggregator": aggregator, "mode": mode,
               **{k: rec[k] for k in ("round", "knobs", "val_loss",
                                      "train_loss", "duals", "participants",
-                                     "wire_mb_actual", "seconds")}})
+                                     "wire_mb_actual")}})
 
 
 @contextlib.contextmanager
@@ -1405,11 +1038,9 @@ def drive_train(dev, out_dir: str):
 
     out = os.path.join(out_dir, "fl")
     ops.reset_launches()
-    t0 = time.perf_counter()
     results = train.main(["--method", "both", "--rounds", str(ENGINE_ROUNDS),
                           "--out", out, "--device", str(dev), "--quiet"])
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     fl = get_fl_config().replace(rounds=ENGINE_ROUNDS)
     for method, res in results.items():
@@ -1442,7 +1073,7 @@ def drive_train(dev, out_dir: str):
     check(launches["flash_attention_bhsd"] > 0,
           f"the engine's eval launched no flash kernel: {launches}")
     emit({"phase": "engine", "runs": "train.main --method both",
-          "mode": "default", "seconds": seconds, "launches": launches})
+          "mode": "default", "launches": launches})
     return results["cafl"].history, launches
 
 
@@ -1480,18 +1111,16 @@ def drive_masked(dev, default_cafl):
                 callbacks=[guard, watch] if aggregator == "masked" else [],
                 device=dev)
             ops.reset_launches()
-            t0 = time.perf_counter()
             try:
                 runs[aggregator] = engine.run().history
             finally:
                 guard.close()
             torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
             launches[aggregator] = dict(ops.LAUNCHES)
             engine_rounds("cafl", aggregator, "deterministic",
                           runs[aggregator])
             emit({"phase": "engine", "runs": f"cafl {aggregator}",
-                  "mode": "deterministic", "seconds": seconds,
+                  "mode": "deterministic",
                   "launches": launches[aggregator]})
     sync, masked = runs["sync"], runs["masked"]
     for aggregator, counts in launches.items():
@@ -1568,34 +1197,6 @@ def check_sanitizers(guard, watch) -> None:
 # ---------------------------------------------------------------------------
 
 
-def device_kernels(fn, reps: int = 1):
-    """Run ``fn`` ``reps`` times under torch.profiler -> (wall seconds,
-    {kernel name: (launches, device us)}) for the CUDA kernels it ran,
-    averaged per repetition. A window in which the tracer delivered no
-    device activity at all (seen once on the card, between two windows
-    that traced) is taken once more."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        out = {}
-        for e in prof.key_averages():
-            if (e.device_type == DeviceType.CUDA
-                    and e.self_device_time_total > 0):
-                out[e.key] = (e.count / reps, e.self_device_time_total / reps)
-        if out:
-            break
-    return wall / reps, out
-
-
 def charlm_fleet_setting():
     """The full-width char-LM (vocab widened to the corpus), its corpus
     and the paper's FL config (16 clients, 6 a round)."""
@@ -1609,54 +1210,26 @@ def charlm_fleet_setting():
     return cfg, get_fl_config(), ds
 
 
-def executor_launches(engine, knobs) -> dict:
-    """One more LocalTrain round of the engine's executor for its first
-    ``clients_per_round`` clients at ``knobs`` cut to 2 local steps of
-    one microbatch (the profiler's post-processing grows with the
-    trace), under torch.profiler -> device kernel launches per client
-    microbatch and the device's busy share. Not a main-path run: its
-    launches are not counted."""
-    knobs = dataclasses.replace(knobs, s=2, grad_accum=1)
-    runner, executor = engine._runner_cache
-    fl = engine.fl
-    assignments = [(engine._client_info(c), knobs)
-                   for c in range(fl.clients_per_round)]
-    params = engine.params
-    wall, kernels = device_kernels(
-        lambda: executor.run_round(params, assignments))
-    check(kernels, "the profiler saw no device work in a LocalTrain round")
-    micro = fl.clients_per_round * knobs.s * knobs.grad_accum
-    busy_s = sum(us for _, us in kernels.values()) / 1e6
-    return {"knobs": knobs.as_dict(), "launches_per_microbatch":
-            sum(n for n, _ in kernels.values()) / micro,
-            "profiled_round_s": wall, "device_busy_share": busy_s / wall}
-
-
 def drive_executors(dev) -> dict:
     """CAFL-L for FLEET_ROUNDS rounds with the sequential and with the
     batched executor, both under deterministic algorithms, held to each
     other at BATCHED_ATOL with equal knobs, participants and launch
     counts (but ``adamw_update``'s, launched by the sequential client
-    alone); then each executor's launches per microbatch and busy share
-    under the profiler."""
-    from repro_torch.core import Knobs
+    alone)."""
     from repro_torch.fl import FederatedEngine
     from repro_torch.kernels import ops
     from repro_torch.models import build
 
     cfg, fl, ds = charlm_fleet_setting()
     fl = fl.replace(rounds=FLEET_ROUNDS)
-    runs, launches, seconds, engines = {}, {}, {}, {}
+    runs, launches = {}, {}
     with deterministic():
         for executor in ("sequential", "batched"):
-            engine = engines[executor] = FederatedEngine(
-                build(cfg), fl, ds, strategy="cafl", executor=executor,
-                device=dev)
+            engine = FederatedEngine(build(cfg), fl, ds, strategy="cafl",
+                                     executor=executor, device=dev)
             ops.reset_launches()
-            t0 = time.perf_counter()
             runs[executor] = engine.run().history
             torch.cuda.synchronize()
-            seconds[executor] = time.perf_counter() - t0
             launches[executor] = dict(ops.LAUNCHES)
             engine_rounds("cafl", "sync", f"deterministic {executor}",
                           runs[executor])
@@ -1682,19 +1255,13 @@ def drive_executors(dev) -> dict:
               f"round {a.round}: batched losses ({b.val_loss}, "
               f"{b.train_loss}) vs sequential ({a.val_loss}, "
               f"{a.train_loss})")
-    profiled = {ex: executor_launches(engines[ex],
-                                      Knobs(**runs[ex][-1].knobs))
-                for ex in engines}
     emit({"phase": "fleet_executors", "rounds": FLEET_ROUNDS,
-          "mode": "deterministic",
-          "seconds_per_round": {ex: [r.seconds for r in h]
-                                for ex, h in runs.items()},
-          "run_s": seconds, "launches": counts,
+          "mode": "deterministic", "launches": counts,
           "max_val_loss_gap": max(abs(a.val_loss - b.val_loss)
                                   for a, b in zip(seq, bat)),
           "max_train_loss_gap": max(abs(a.train_loss - b.train_loss)
                                     for a, b in zip(seq, bat)),
-          "atol": BATCHED_ATOL, "profiled_round": profiled})
+          "atol": BATCHED_ATOL})
     return {k: launches["sequential"][k] + launches["batched"][k]
             for k in counts}
 
@@ -1730,10 +1297,8 @@ def drive_async(dev) -> dict:
                                  aggregator=agg, device=dev)
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launches()
-        t0 = time.perf_counter()
         hist = engine.run(time_mode="wall_clock").history
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
         counts = dict(ops.LAUNCHES)
         check(counts["flash_attention_bhsd"] > 0,
               f"the {name} wall-clock run launched no flash kernel")
@@ -1753,7 +1318,7 @@ def drive_async(dev) -> dict:
             "lost": sum(len(r.dropped) for r in hist),
             "val_loss": [r.val_loss for r in hist],
             "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-            "run_s": seconds, "launches": counts}
+            "launches": counts}
         emit(row)
     check(rows["fedbuff"]["late"] > 0,
           "FedBuff applied no late report on the wall clock")
@@ -1782,10 +1347,8 @@ def drive_stacked(dev) -> dict:
     engine = FederatedEngine(build(cfg), fl, ds, strategy="cafl+adam",
                              dynamics=dyn, device=dev)
     ops.reset_launches()
-    t0 = time.perf_counter()
     hist = engine.run().history
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     counts, topk = dict(ops.LAUNCHES), dict(cuda_lib.TOPK_VARIANTS)
     engine_rounds("cafl+adam", "sync", "stacked", hist)
     shipped = sum(len(r.participants) for r in hist if r.knobs.get("q"))
@@ -1804,7 +1367,7 @@ def drive_stacked(dev) -> dict:
     check(counts["flash_attention_bhsd"] > 0,
           "the stacked run launched no flash kernel")
     emit({"phase": "fleet_stack", "strategy": engine.strategy.name,
-          "rounds": len(hist), "run_s": seconds,
+          "rounds": len(hist),
           "knobs": [r.knobs for r in hist],
           "participants": [r.participants for r in hist],
           "dropped": [r.dropped for r in hist],
@@ -1817,9 +1380,7 @@ def drive_stacked(dev) -> dict:
 def drive_fleet(dev) -> dict:
     """The fleet phase's three paths, each with the counts zeroed just
     before it and read just after -> their summed launch counts."""
-    t0 = time.perf_counter()
     parts = [drive_executors(dev), drive_async(dev), drive_stacked(dev)]
-    emit({"phase": "fleet", "seconds": time.perf_counter() - t0})
     return {k: sum(p.get(k, 0) for p in parts) for k in parts[0]}
 
 
@@ -1869,19 +1430,16 @@ def drive_sched(dev) -> dict:
     from repro_torch.analysis.sched.gate import full_width_stack, run_scenario
     from repro_torch.kernels import ops
 
-    t_phase = time.perf_counter()
     model, fl, ds = full_width_stack()
     total: dict = {}
     with deterministic():
         for name, perms in SCHED_PERMUTATIONS.items():
             log = launch_log()
             ops.reset_launches()
-            t0 = time.perf_counter()
             row, findings, problems = run_scenario(
                 name, model, fl, ds, permutations=perms, device=dev,
                 callbacks=[log])
             torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
             launches = dict(ops.LAUNCHES)
             q_rounds = [(rnd, counts) for run in log.rounds
                         for rnd, knobs, _, counts in run
@@ -1896,8 +1454,7 @@ def drive_sched(dev) -> dict:
                   "races": row["races"],
                   "races_certified": row["races_certified"],
                   "replays": len(log.runs), "q_rounds": len(q_rounds),
-                  "launches": launches, "seconds": seconds,
-                  "problems": problems[:4]})
+                  "launches": launches, "problems": problems[:4]})
             check(not problems and not findings,
                   f"{name}: {len(problems)} problem(s), {len(findings)} "
                   f"race finding(s): {problems[:4]}")
@@ -1929,7 +1486,7 @@ def drive_sched(dev) -> dict:
             total = {k: total.get(k, 0) + v for k, v in launches.items()}
     emit({"phase": "analysis", "config": model.cfg.name,
           "params": model.param_count()["total"],
-          "setting": SCHED_SETTING, "seconds": time.perf_counter() - t_phase})
+          "setting": SCHED_SETTING})
     return total
 
 
@@ -2014,7 +1571,6 @@ def drive_trace(dev) -> dict:
     from repro_torch.core import client
     from repro_torch.kernels import ops
 
-    t_phase = time.perf_counter()
     lo, hi = TRACE_BRACKET
     report = run_trace(ROOT)
     for t in report.traced:
@@ -2120,8 +1676,7 @@ def drive_trace(dev) -> dict:
           "static_verdict": verdicts["static"],
           "measured_verdict": verdicts["measured"],
           "verdicts_agree": verdicts["static"] == verdicts["measured"]})
-    emit({"phase": "trace_total", "seconds": time.perf_counter() - t_phase,
-          "launches": launches})
+    emit({"phase": "trace_total", "launches": launches})
     return launches
 
 
@@ -2151,42 +1706,6 @@ def logit_gap(name: str, got, want, bound: float, config: str,
         check(math.isfinite(gap) and gap <= bound,
               f"{config} {name}: logits part by {gap} (bound {bound})")
     return gap
-
-
-def device_split(fn, top: int = 6):
-    """``fn()`` under torch.profiler -> (its result, {"device_us": all
-    device time, "device_ops": the kernels and copies the card ran,
-    "flash_device_us": the flash kernel's, "top_kernels": the ``top``
-    largest kernels by device time, [name, us]}).
-
-    The profiler records the card's activity alone, and the kernels'
-    times are summed from its events directly, not through
-    ``key_averages``: xLSTM's prefill launches ~200,000 kernels, and
-    recording the host's ops beside them, then averaging, took most of
-    its phase's time; the kernels' sums are the same either way."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.kernels.flash_attention import KERNELS
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    n_ops = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n_ops += 1
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.self_device_time_total)
-    kernels = sorted(((name, us) for name, us in by_name.items() if us > 0),
-                     key=lambda kv: -kv[1])
-    total = sum(us for _, us in kernels)
-    flash = sum(us for name, us in kernels
-                if any(k in name for k in KERNELS.values()))
-    return out, {"device_us": total, "device_ops": n_ops,
-                 "flash_device_us": flash,
-                 "top_kernels": [[name[:80], us] for name, us in
-                                 kernels[:top]]}
 
 
 @contextlib.contextmanager
@@ -2290,9 +1809,9 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
     encoder-decoder: ``synthetic_batch(cfg, 1, 2 * prompt_len)``,
     ``prompt_len`` source frames and target tokens) and decode ``steps``
     greedy tokens through the serving steps; returns the flash launches
-    of the timed prefill and of the decode steps.
+    of the first prefill and of the decode steps.
 
-    Checks: (a) the timed prefill's last logits against the same model
+    Checks: (a) the prefill's last logits against the same model
     with the plain attention in its place (a config with attention); (b)
     decode after the first and the last step against a prefill over the
     prompt plus the tokens so far. Both within 2 x 2^-8 x sqrt(2 L)
@@ -2305,13 +1824,10 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
     line prints, per MoE layer, the tokens whose own choice differs
     (routing flips from bf16 rounding). With ``check_dtype``
     (xLSTM: float32), (b) runs the same weights in that dtype, prefill
-    and decode fed the timed run's tokens, and the timed bf16 decode's
-    own gaps are printed beside it, unchecked: the 48-block xLSTM stack
-    parts two bf16 runs by more than the bound even when they differ
-    only in a GEMM's tiling (``SERVE_XLSTM``). The line also carries
-    the decode step's floor: the bytes of the weights and of the decode
-    caches (recurrent states, KV and cross K/V buffers), each read once,
-    over the card's memory rate."""
+    and decode fed the bf16 run's tokens, and the bf16 decode's own gaps
+    are printed beside it, unchecked: the 48-block xLSTM stack parts two
+    bf16 runs by more than the bound even when they differ only in a
+    GEMM's tiling (``SERVE_XLSTM``)."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.data import synthetic_batch
     from repro_torch.kernels import cuda_lib, ops, ref
@@ -2335,12 +1851,8 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
                                 seq_len=prompt_len, global_batch=1)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    phase_t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.perf_counter()
     params = model.init(gen, dev).params()
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in params.values())
     counts = model.param_count()
     check(n_params == counts["total"],
@@ -2363,15 +1875,10 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
     check_prefill = make_prefill_step(check_model, shape,
                                       max_new_tokens=steps)
     decode = make_decode_step(model if check_dtype else check_model)
-    prefill(params, batch(prompt[:, :512]))               # warm up
-    torch.cuda.synchronize()
 
     ops.reset_launches()
-    t0 = time.perf_counter()
     logits, caches = prefill(params, batch(prompt))
     torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    clocks = smi_clocks()
     launches = dict(ops.LAUNCHES)
     variants = dict(cuda_lib.FLASH_VARIANTS)
     check(launches["flash_attention_bhsd"] == n_flash,
@@ -2392,21 +1899,15 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
         start = logits
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in flatten(caches).values())
-    bw = card_rates(torch.cuda.get_device_name(0))[1][0]
-    floor_bytes = sum(t.numel() * t.element_size()
-                      for t in params.values()) + cache_bytes
 
-    tokens, step_ms = [], []
+    tokens = []
     tok = start.argmax(-1)
     first = None
     flash_before = ops.LAUNCHES["flash_attention_bhsd"]
     with routing_log() as decoded:
         for i in range(steps):
             tokens.append(tok)
-            t0 = time.perf_counter()
             out, caches = decode(params, caches, tok)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
             check(bool(torch.isfinite(out).all()),
                   f"decode step {i}: not finite")
             if i == 0:
@@ -2419,15 +1920,13 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
     check(decode_flash == want_flash,
           f"decode launched the flash kernel {decode_flash} times, "
           f"expected {want_flash}")
-    # one more step under the profiler: the device's share of a step
-    _, step_split = device_split(lambda: decode(params, caches, tok))
     del caches
     n_moe = len(decoded) // steps
 
     # (b) decode against prefill over the prompt plus the tokens so far
     bf16_gaps = None
     if check_dtype is not None:
-        # the timed (bf16) decode's gaps, printed, not checked
+        # the bf16 decode's gaps, printed, not checked
         bf16_gaps = [logit_gap(f"{cfg.param_dtype} decode step {n} vs "
                                f"prefill (not checked)", got,
                                prefill(params, batch(torch.cat(
@@ -2462,20 +1961,14 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
               cfg.name)
     del after_one, after_all, params_c
 
-    # (a) the kernel against the plain attention inside the same model;
-    # the kernel's prefill (the timed one's function) under the profiler
+    # (a) the kernel against the plain attention inside the same model
     real = ops.flash_attention
+    flash_before = ops.LAUNCHES["flash_attention_bhsd"]
     with routing_log() as kernel_routes:
-        (kernel, _), split = device_split(
-            lambda: prefill(params, batch(prompt)))
-    check(split["device_us"] > 0 and (split["flash_device_us"] > 0
-                                      or not n_flash),
-          "the profiler saw no device time of the flash kernel in prefill")
-    split = {"prefill_device_us": split["device_us"],
-             "prefill_device_ops": split["device_ops"],
-             "flash_device_us": split["flash_device_us"],
-             "flash_share": split["flash_device_us"] / split["device_us"],
-             "prefill_top_kernels": split["top_kernels"]}
+        kernel, _ = prefill(params, batch(prompt))
+    again = ops.LAUNCHES["flash_attention_bhsd"] - flash_before
+    check(again == n_flash, f"the kernel's prefill of check (a) launched "
+          f"flash {again} times, expected {n_flash}")
     if n_flash:
         with routing_log() as plain_routes:
             ops.flash_attention = ref.flash_attention_ref
@@ -2491,21 +1984,12 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
            "enc_layers": cfg.enc_layers,
            "dtype": str(cfg.param_dtype), "batch": 1, "prompt": prompt_len,
            "source_frames": 0 if src is None else src.shape[1],
-           "decode_steps": steps, "reduces": reduces, "init_s": init_s,
-           "prefill_s": prefill_s,
-           "prefill_tokens_per_s": prompt_len / prefill_s,
-           "decode_ms_per_token": statistics.median(step_ms),
-           "decode_step_ms": step_ms, "peak_memory_bytes": peak,
-           "decode_floor_bytes": floor_bytes,
-           "decode_cache_bytes": cache_bytes,
-           "decode_floor_ms": floor_bytes / bw * 1e3,
+           "decode_steps": steps, "reduces": reduces,
+           "peak_memory_bytes": peak, "decode_cache_bytes": cache_bytes,
            "rel_l2_bound": bound, "check_dtype": str(check_dtype),
            "bf16_decode_gaps_unchecked": bf16_gaps, "launches": launches,
            "decode_flash_launches": decode_flash,
-           "flash_variants": variants, **clocks, **split,
-           "decode_step_device_us": step_split["device_us"],
-           "decode_step_device_ops": step_split["device_ops"],
-           "decode_top_kernels": step_split["top_kernels"]}
+           "flash_variants": variants, "nvidia_smi": smi}
     if cfg.moe:
         dropped = [float(1 - kept.float().mean()) for _, kept in kernel_routes]
         last = slice(-1, None)
@@ -2526,8 +2010,6 @@ def drive_serving(dev, smi: str, arch: str = "gemma2-9b", *,
         check(rec["check_drop_share"] == 0.0,
               f"the decode checks' prefill dropped tokens at capacity "
               f"factor {check_capacity}")
-    rec.update({"phase_s": time.perf_counter() - phase_t0,
-                "nvidia_smi": smi})
     emit(rec)
     return launches["flash_attention_bhsd"] + decode_flash
 
@@ -2606,11 +2088,7 @@ def train_dryrun(arch: str) -> dict:
 
     cfg, seq, _ = train_setting(arch)
     shape = InputShape("train_4k", seq, TRAIN_BATCH, "train")
-    t0 = time.perf_counter()
-    rec = dryrun.analyze(cfg, shape, microbatches=TRAIN_MICROBATCHES)
-    rec["roofline"] = dryrun.roofline(rec, cfg, shape)
-    rec["trace_s"] = time.perf_counter() - t0
-    return rec
+    return dryrun.analyze(cfg, shape, microbatches=TRAIN_MICROBATCHES)
 
 
 def leaf_gaps(got: dict, want: dict) -> dict:
@@ -2714,22 +2192,18 @@ def drive_train_full(dev, smi: str, records) -> None:
     freezing mask at k = 1, on the same batch. The loss must be finite
     and fall from step 1 to step 2, the mask freeze some part and every
     frozen part keep its bits, and no flash kernel launch (attention
-    under a gradient is the plain ``blockwise_attention``). Prints the step's seconds, the peak memory
-    beside the dry-run's estimate (``records``: futures of
-    ``train_dryrun``), and MFU (model FLOPs / (s x 989 TFLOP/s))."""
-    from repro_torch.configs.base import InputShape
+    under a gradient is the plain ``blockwise_attention``). Prints the
+    peak memory beside the dry-run's estimate (``records``: futures of
+    ``train_dryrun``)."""
     from repro_torch.core.freezing import mask_tree
     from repro_torch.data import synthetic_batch
     from repro_torch.kernels import ops
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build
     from repro_torch.optim import adamw
 
     for arch in TRAIN_DEPTH:
         cfg, seq, published = train_setting(arch)
-        shape = InputShape("train_4k", seq, TRAIN_BATCH, "train")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model = build(cfg)
@@ -2743,13 +2217,10 @@ def drive_train_full(dev, smi: str, records) -> None:
         frozen = frozen_parts(params, mask)
         step = make_train_step(model, opt, True, TRAIN_MICROBATCHES)
         ops.reset_launches()
-        losses, seconds = [], []
+        losses = []
         for _ in range(TRAIN_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             params, state, loss = step(params, state, batch, mask)
             losses.append(float(loss))
-            seconds.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated()
         flash = ops.LAUNCHES["flash_attention_bhsd"]
         kept = all(torch.equal((params[name] if units is None
@@ -2758,20 +2229,14 @@ def drive_train_full(dev, smi: str, records) -> None:
         del params, state, batch
         rec = records[arch].result()
         est = rec["memory"]["per_device_total_gb"] * 1e9
-        median = statistics.median(seconds)
-        mf = dryrun.model_flops(cfg, shape)
         emit({"phase": "train", "config": cfg.name,
               "layers": f"{cfg.num_layers} of {published}",
               "params": model.param_count()["total"],
               "dtype": str(cfg.param_dtype).split(".")[-1],
               "batch": [TRAIN_BATCH, seq], "microbatches":
               TRAIN_MICROBATCHES, "mask_k": TRAIN_K, "losses": losses,
-              "seconds": seconds, "median_s": median,
-              "tokens_per_s": TRAIN_BATCH * seq / median,
               "peak_gb": peak / 1e9, "dryrun_gb": est / 1e9,
               "peak_over_dryrun": peak / est,
-              "dryrun_trace_s": rec["trace_s"], "model_flops": mf,
-              "mfu": mf / (median * PEAK_FLOPS_BF16),
               "frozen_parts": len(frozen), "flash_launches": flash,
               "reduces": TRAIN_NOTES.get(arch, TRAIN_REDUCES),
               "nvidia_smi": smi})
@@ -2784,13 +2249,6 @@ def drive_train_full(dev, smi: str, records) -> None:
         check(len(frozen) > 0, f"{arch} train: k = 1 of {cfg.num_layers} "
               "layers froze nothing")
         check(flash == 0, f"{arch} train launched flash {flash} times")
-        if arch == "gemma2-9b":
-            emit({"phase": "train_dryrun", "config": cfg.name,
-                  "layers": cfg.num_layers, "batch": [TRAIN_BATCH, seq],
-                  "microbatches": TRAIN_MICROBATCHES,
-                  "trace_s": rec["trace_s"], "memory": rec["memory"],
-                  "cost": rec["cost"], "roofline": rec["roofline"],
-                  "nvidia_smi": smi})
 
 
 @contextlib.contextmanager
@@ -2828,7 +2286,7 @@ def drive_adamw(dev) -> None:
     Phi-3.5-MoE's full-width train step at the train phase's setting
     (``TRAIN_DEPTH`` layers, 2 x 4,096 tokens in 2 microbatches, mask
     k = 1), 2 steps, every parameter. Each step launches the kernel once
-    a parameter. No timing."""
+    a parameter."""
     from repro_torch.configs.base import InputShape
     from repro_torch.core.freezing import mask_tree
     from repro_torch.data import synthetic_batch
@@ -2897,15 +2355,13 @@ def drive_adamw(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def drive_train_phase(dev, smi: str) -> float:
+def drive_train_phase(dev, smi: str) -> None:
     """Phase 8: the dry-runs of the full-width settings start in worker
     processes (xLSTM's, the longest, first), the SMOKE card-vs-CPU steps,
-    the full-width steps and the AdamW kernel's checks run meanwhile ->
-    the phase's seconds."""
+    the full-width steps and the AdamW kernel's checks run meanwhile."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    t0 = time.perf_counter()
     order = sorted(TRAIN_DEPTH, key=lambda a: a != "xlstm-1.3b")
     # the full-width steps fill 78-80 GB in blocks of many sizes (96- and
     # 128-head scores beside the weights), where fixed segments leave
@@ -2928,7 +2384,6 @@ def drive_train_phase(dev, smi: str) -> float:
     finally:
         torch.cuda.empty_cache()
         torch._C._accelerator_setAllocatorSettings("expandable_segments:False")
-    return time.perf_counter() - t0
 
 
 def mesh_record(arch, shape) -> dict:
@@ -3000,12 +2455,10 @@ def drive_mesh(dev, smi: str) -> int:
     (after the steps too); the collectives of the first run, counted by
     the dry-run's ``_Traffic``, per type equal in count and bytes to the
     record's; peak memory over the record's within ``MESH_MEMORY_BAND``;
-    the timed runs' seconds (CUDA events) beside the record's
-    t_compute_s + t_memory_s (printed, not held: one rank's compute, no
-    communication); the flash kernel launched under the prefill and not
-    under the train step, and the flash wrapper on a rank's layer held
-    against its plain version; the host syncs of the timed runs counted
-    (torch's sync debug mode). -> the prefill's flash launches."""
+    the flash kernel launched under the prefill and not under the train
+    step, and the flash wrapper on a rank's layer held against its plain
+    version; the host syncs of the later runs counted (torch's sync debug
+    mode). -> the prefill's flash launches."""
     import multiprocessing
     import warnings
     from concurrent.futures import ProcessPoolExecutor
@@ -3045,19 +2498,14 @@ def drive_mesh(dev, smi: str) -> int:
                 with dryrun._shape_inference_paused(), count:
                     out = step(*args)
                 del out
-                seconds, syncs = [], 0
+                syncs = 0
                 for _ in range(MESH_RUNS[shape.name] - 1):
                     with warnings.catch_warnings(record=True) as caught:
                         warnings.simplefilter("always")
                         torch.cuda.set_sync_debug_mode("warn")
-                        start = torch.cuda.Event(enable_timing=True)
-                        end = torch.cuda.Event(enable_timing=True)
-                        start.record()
                         out = step(*args)
-                        end.record()
                         torch.cuda.set_sync_debug_mode(0)
                         torch.cuda.synchronize()
-                        seconds.append(start.elapsed_time(end) / 1e3)
                     syncs += sum("synchroniz" in str(w.message)
                                  for w in caught)
                     del out
@@ -3074,7 +2522,6 @@ def drive_mesh(dev, smi: str) -> int:
                   f"{rec.get('error', '')[-1500:]}")
             coll = rec["collectives"]
             est = rec["memory"]["per_device_total_gb"] * 1e9
-            r = rec["roofline"]
             line = {"phase": "mesh", "config": cfg.name,
                     "shape": shape.name, "mesh": rec["mesh"], "rank": 0,
                     "recipe": rec["recipe"], "layers": cfg.num_layers,
@@ -3087,11 +2534,6 @@ def drive_mesh(dev, smi: str) -> int:
                     "dryrun_bytes": coll["bytes_per_device"],
                     "peak_gb": peak / 1e9, "dryrun_gb": est / 1e9,
                     "peak_over_dryrun": peak / est,
-                    "step_s": seconds,
-                    "dryrun_compute_plus_memory_s":
-                        r["t_compute_s"] + r["t_memory_s"],
-                    "dryrun_collective_s": r["t_collective_s"],
-                    "dryrun_trace_s": rec["trace_s"],
                     "flash_launches": flash, "host_syncs": syncs,
                     "nvidia_smi": smi}
             if layer is not None:
@@ -3155,11 +2597,9 @@ def main() -> int:
     dev = resolve_device("cuda")
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
-    t0 = time.perf_counter()
     cuda_lib.load_library()
     emit({"phase": "device", "nvidia_smi": smi, "name": name,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernel_build_s": time.perf_counter() - t0,
           "library": os.path.relpath(cuda_lib.library_path(), ROOT)})
     for row in cuda_lib.ptxas_report():
         emit({"phase": "ptxas", **row})
@@ -3170,30 +2610,14 @@ def main() -> int:
 
     worst = check_kernels(leaves, dev)
     worst.update(check_masked_sum(dev))
-    recs, sizes = kernel_records(leaves, name)
-    for r in recs:
-        emit({"phase": "kernel", **r, **sizes})
-    u64_rec, limbs_rec = masked_sum_records(dev, name)
-    for rec in (u64_rec, limbs_rec):
-        emit({"phase": "kernel", **rec})
-    recs.append(u64_rec)
-    emit(masked_round_host(dev, model))
+    emit(check_masked_round(dev, model))
     flash_check = check_flash(dev)
     emit(flash_check)
-    flash_recs = flash_records(dev, name)
-    for r in flash_recs:
-        emit({"phase": "kernel", **r})
-    rec = dict(flash_recs[0])              # the Gemma2 global layer
-    recs.append(rec)
-    worst["flash_attention_bhsd"] = max(
-        *flash_check["max_abs_err"].values(),
-        *(r["max_abs_err"] for r in flash_recs))
+    worst["flash_attention_bhsd"] = max(*flash_check["max_abs_err"].values(),
+                                        check_flash_shapes(dev))
 
-    t0 = time.perf_counter()
     init_params, rounds, launches = drive_rounds(dev, cfg, fl, ds)
-    rounds_s = time.perf_counter() - t0
-    emit({"phase": "rounds", "rounds": len(rounds), "seconds": rounds_s,
-          "launches": launches})
+    emit({"phase": "rounds", "rounds": len(rounds), "launches": launches})
     for kernel in ("quantize_blocks", "dequantize_blocks",
                    "quantize_topk_blocks", "flash_attention_bhsd"):
         check(launches[kernel] > 0,
@@ -3216,19 +2640,20 @@ def main() -> int:
     serve_flash += drive_serving(dev, smi, **SERVE_XLSTM)
     serve_flash += drive_serving(dev, smi, **SERVE_ENCDEC)
     serve_flash += drive_serve_smoke(dev)
-    serve_launches = {"flash_attention_bhsd": serve_flash}
-    emit({"phase": "train_total", "seconds": drive_train_phase(dev, smi)})
-    t0 = time.perf_counter()
-    serve_launches["flash_attention_bhsd"] += drive_mesh(dev, smi)
-    emit({"phase": "mesh_total", "seconds": time.perf_counter() - t0})
-    for r in recs + [limbs_rec]:
-        r["launches"] = (launches[r["name"]] + train_launches[r["name"]]
-                         + det_launches[r["name"]]
-                         + fleet_launches[r["name"]]
-                         + sched_launches[r["name"]]
-                         + trace_launches[r["name"]]
-                         + serve_launches.get(r["name"], 0))
-        r["max_abs_err"] = worst[r["name"]]
+    drive_train_phase(dev, smi)
+    serve_flash += drive_mesh(dev, smi)
+    parts = (launches, train_launches, det_launches, fleet_launches,
+             sched_launches, trace_launches,
+             {"flash_attention_bhsd": serve_flash})
+
+    def summary(name, replaces, source):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(p.get(name, 0) for p in parts),
+                "max_abs_err": worst[name]}
+
+    recs = [summary(*kernel) for kernel in MAIN_KERNELS]
+    limbs_rec = summary(*OFF_PATH_KERNEL)
     for r in recs:
         check(r["launches"] > 0,
               f"{r['name']} was not launched on the main path")
@@ -3239,11 +2664,9 @@ def main() -> int:
           f"{limbs_rec['launches']} times")
 
     emit({"phase": "total", "seconds": time.perf_counter() - start})
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"phase": "kernel_off_path", **{k: limbs_rec[k] for k in keys},
-          "host_us": limbs_rec["host_us"], "entry": limbs_rec["entry"]})
-    emit({"kernels": [{k: r[k] for k in keys} for r in recs]})
+    emit({"phase": "kernel_off_path", **limbs_rec,
+          "entry": "(hi, lo) uint32 limbs"})
+    emit({"kernels": recs})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,10 @@
 """Package-level contracts of the port: it imports neither JAX nor the JAX
 package, its entry points default to the card and raise without one
-(nothing falls back to the CPU), and ``chip_smoke.py`` refuses to run
-without a card or without the rest of the repository."""
+(nothing falls back to the CPU), ``chip_smoke.py`` refuses to run
+without a card or without the rest of the repository, and the card tools
+point one way: ``chip_smoke.py`` checks and times nothing, the scripts
+take no timing from it."""
+import ast
 import os
 import pkgutil
 import shutil
@@ -123,3 +126,81 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                          cwd=tmp_path, env=env)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _ast(*path):
+    with open(os.path.join(REPO, *path)) as f:
+        return ast.parse(f.read())
+
+
+def _times(node) -> list:
+    """What in ``node`` times: a CUDA event made with a timing argument,
+    torch.profiler, any use of the ``time`` module's clocks, an
+    nvidia-smi clock or power query."""
+    found = []
+    for n in ast.walk(node):
+        if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute):
+            if n.func.attr == "Event" and (n.args or any(
+                    k.arg in ("enable_timing", None) for k in n.keywords)):
+                found.append("torch.cuda.Event(<timing>)")
+            if n.func.attr == "elapsed_time":
+                found.append(n.func.attr)
+        if (isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+                and n.value.id == "time"):
+            found.append(f"time.{n.attr}")
+        if isinstance(n, ast.ImportFrom) and n.module and (
+                "profiler" in n.module or n.module == "time"):
+            found.append(f"from {n.module} import")
+        if isinstance(n, ast.Import) and any(
+                "profiler" in a.name or (a.name == "time" and a.asname)
+                for a in n.names):
+            found.append("import profiler or time as")
+        if isinstance(n, ast.Attribute) and n.attr == "profiler":
+            found.append("torch.profiler")
+        if isinstance(n, ast.Constant) and isinstance(n.value, str) and (
+                "clocks.sm" in n.value or "power.draw" in n.value):
+            found.append(n.value)
+    return found
+
+
+@pytest.mark.parametrize("rule", ["chip_smoke_imports_no_script",
+                                  "chip_smoke_does_not_time",
+                                  "scripts_take_no_timing_from_chip_smoke"])
+def test_card_tools_point_one_way(rule):
+    """``chip_smoke.py`` checks, ``scripts/profile_port.py`` times a kernel
+    alone, ``portbench/`` measures the system: the checker imports none
+    of the scripts and times nothing (its one ``total`` line aside, a host
+    clock in ``main``), and neither timing script imports from it a
+    function that times."""
+    smoke = _ast("chip_smoke.py")
+    defs = {n.name: n for n in smoke.body if isinstance(n, ast.FunctionDef)}
+    if rule == "chip_smoke_imports_no_script":
+        scripts = {name[:-3] for name in os.listdir(os.path.join(REPO,
+                                                                 "scripts"))
+                   if name.endswith(".py")}
+        assert {"profile_port", "wire_ab"} <= scripts
+        imported = [a.name.split(".")[0] for n in ast.walk(smoke)
+                    if isinstance(n, ast.Import) for a in n.names]
+        imported += [n.module.split(".")[0] for n in ast.walk(smoke)
+                     if isinstance(n, ast.ImportFrom) and n.module]
+        assert not scripts & set(imported), scripts & set(imported)
+        assert not any(isinstance(n, ast.Constant) and n.value == "scripts"
+                       for n in ast.walk(smoke))
+    elif rule == "chip_smoke_does_not_time":
+        timed = {name: _times(node) for name, node in defs.items()
+                 if name != "main" and _times(node)}
+        assert not timed, timed
+        # main's one host clock: the run's total seconds
+        assert _times(defs["main"]) == ["time.perf_counter"] * 2
+        rest = [n for n in smoke.body if not isinstance(n, ast.FunctionDef)]
+        assert not [t for n in rest for t in _times(n)]
+    else:
+        for script in ("profile_port.py", "wire_ab.py"):
+            tree = _ast("scripts", script)
+            names = [a.name for n in ast.walk(tree)
+                     if isinstance(n, ast.ImportFrom)
+                     and n.module == "chip_smoke" for a in n.names]
+            assert names, f"{script} imports nothing from chip_smoke"
+            timing = {name: _times(defs[name]) for name in names
+                      if name in defs and _times(defs[name])}
+            assert not timing, (script, timing)
